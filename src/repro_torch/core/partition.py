@@ -1,0 +1,105 @@
+"""Cut-layer model partitioning — counterpart of ``repro/core/partition.py``.
+
+A model is wrapped into a uniform ``SplitAdapter`` so the strategies are
+architecture-agnostic.  Segments:
+
+  * ``front``  — at the client; raw inputs never leave it.
+  * ``middle`` — at the server (the bulk of the compute).
+
+The reference's ``tail`` (the U-shaped, non-label-sharing split) is not
+ported yet (ROADMAP M5).
+
+Boundary shapes are computed on the ``meta`` device: no memory, no compute.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+META = torch.device("meta")
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitAdapter:
+    """Uniform three-segment view of a model for the distributed strategies."""
+    name: str
+    seg_names: tuple[str, ...]                 # ("front", "middle")
+    init: Callable[..., Any]                   # (generator, device) -> params
+    inputs: Callable[[dict], Any]              # batch -> x0
+    apply_seg: Callable[..., Any]              # (seg, seg_params, x, batch, train) -> x
+    loss_from_output: Callable[[Any, dict], Any]
+    scores_from_output: Callable[[Any], Any]   # output -> probabilities
+    batch_keys: tuple[str, ...] = ()           # what a step reads of a batch
+
+    def full_loss(self, params, batch, train=True, boundary=None):
+        """``boundary``: optional fn applied to the cut-layer activation
+        (the ``repro_torch.wire`` transport hook)."""
+        x = self.apply_seg("front", params["front"], self.inputs(batch),
+                           batch, train)
+        if boundary is not None:
+            x = boundary(x)
+        x = self.apply_seg("middle", params["middle"], x, batch, train)
+        return self.loss_from_output(x, batch)
+
+    def full_scores(self, params, batch):
+        x = self.inputs(batch)
+        for seg in self.seg_names:
+            x = self.apply_seg(seg, params[seg], x, batch, False)
+        return self.scores_from_output(x)
+
+    # -- boundary shape accounting (for repro_torch.core.comm) --------------
+    def boundary_specs(self, example_batch: dict, params=None) -> dict:
+        """Meta tensors with the shape and dtype of every segment-boundary
+        activation (NHWC, as in the reference)."""
+        if params is None:
+            params = self.init(None, META)
+        b = {k: as_meta(v) for k, v in example_batch.items()}
+        with torch.no_grad():
+            h = self.apply_seg("front", params["front"], self.inputs(b), b,
+                               True)
+        return {"front->middle": h}
+
+
+def as_meta(v) -> torch.Tensor:
+    """A numpy array or tensor -> an empty meta tensor of its shape/dtype."""
+    if isinstance(v, torch.Tensor):
+        return torch.empty(v.shape, dtype=v.dtype, device=META)
+    v = np.asarray(v)
+    dtype = torch.from_numpy(np.empty((0,), v.dtype)).dtype
+    return torch.empty(v.shape, dtype=dtype, device=META)
+
+
+def cnn_adapter(model) -> SplitAdapter:
+    """Wrap a ``repro_torch.models.cnn.CNNModel``."""
+    from repro_torch.models.cnn import bce_loss
+
+    def inputs(batch):
+        return batch["image"]
+
+    def apply_seg(seg, seg_params, x, batch, train=False):
+        return model.apply_segment(seg_params, seg, x, train)
+
+    def loss_from_output(out, batch):
+        return bce_loss(out, batch["label"])
+
+    def scores_from_output(out):
+        return torch.sigmoid(out.reshape(-1).float())
+
+    return SplitAdapter(model.name, tuple(model.seg_names), model.init_params,
+                        inputs, apply_seg, loss_from_output,
+                        scores_from_output, batch_keys=("image", "label"))
+
+
+def leaf_bytes(tree) -> int:
+    return int(sum(l.numel() * l.element_size() for l in tree_leaves(tree)))
+
+
+def detached(tree, requires_grad=False):
+    """Fresh leaf tensors of ``tree`` (for one step's autograd graph)."""
+    return tree_map(lambda t: t.detach().requires_grad_(requires_grad), tree)

@@ -1,0 +1,62 @@
+"""Parameter and state conversion between the reference's layouts (trees of
+numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) and the port's.
+
+  * conv weights: HWIO in the reference, OIHW in the port (any 4-D leaf);
+  * a dense weight is (in, out) in both;
+  * SplitFedv3's ``stacked_clients`` / ``c_opt`` carry a leading hospital
+    axis in the reference and are per-hospital lists in the port.
+
+Only numpy crosses this module; it imports nothing of the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def params_from_jax(tree, device="cpu"):
+    """Tree of numpy arrays (reference layout) -> tree of tensors."""
+    def one(a):
+        a = np.asarray(a)
+        if a.ndim == 4:                        # HWIO -> OIHW
+            a = a.transpose(3, 2, 0, 1)
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+    return tree_map(one, tree)
+
+
+def params_to_numpy(tree):
+    """Tree of tensors -> tree of numpy arrays in the reference layout."""
+    def one(t):
+        a = t.detach().cpu().numpy()
+        return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+    return tree_map(one, tree)
+
+
+def _unstack(tree, n):
+    return [tree_map(lambda a: np.asarray(a)[i], tree) for i in range(n)]
+
+
+def _adam_from_jax(opt, device, n=None):
+    """Reference Adam state ``{"step", "mu", "nu"}`` -> the port's (a list
+    of ``n`` per-hospital states when the moments are stacked)."""
+    step = int(np.asarray(opt["step"]))
+    if n is None:
+        return {"step": step, "mu": params_from_jax(opt["mu"], device),
+                "nu": params_from_jax(opt["nu"], device)}
+    return [{"step": step, "mu": params_from_jax(m, device),
+             "nu": params_from_jax(v, device)}
+            for m, v in zip(_unstack(opt["mu"], n), _unstack(opt["nu"], n))]
+
+
+def sflv3_state_from_jax(state, device="cpu"):
+    """Reference SplitFedv3 state (``stacked_clients``, ``server``,
+    ``c_opt``, ``s_opt``; numpy leaves) -> the port's state dict."""
+    n = np.asarray(tree_leaves(state["stacked_clients"])[0]).shape[0]
+    return {"clients": [params_from_jax(c, device)
+                        for c in _unstack(state["stacked_clients"], n)],
+            "server": params_from_jax(state["server"], device),
+            "c_opts": _adam_from_jax(state["c_opt"], device, n),
+            "s_opt": _adam_from_jax(state["s_opt"], device)}
