@@ -1,8 +1,8 @@
 """Strategy registry — counterpart of ``repro.core.strategies``.
 
-This slice ports SplitFedv3 (``sflv3_ac`` / ``sflv3_am``) on the stepwise
-engine; every other method and option raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+The port has SplitFedv3 (``sflv3_ac`` / ``sflv3_am``) on the stepwise
+engine, private or not; every other method and option raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from repro_torch.core.strategies.base import EpochLog, Strategy
@@ -19,7 +19,8 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
                   shard=False, observe=None,
                   precision="fp32", participation=None, aggregator=None,
                   device=None):
-    """method: ``sflv3_{ac,am}`` in this slice.
+    """method: ``sflv3_{ac,am}`` so far.  ``privacy``: a
+    ``repro_torch.privacy.PrivacyConfig`` (DP-SGD and/or cut-layer noise).
 
     ``device`` None means the CUDA card (raises without one); pass
     ``device="cpu"`` to run the plain PyTorch path on the CPU.  A
@@ -29,7 +30,6 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
     engine is ``"stepwise"``, the only one ported.
     """
     unported = [
-        (privacy is not None, "privacy=", "M8 (privacy)"),
         (observe is not None, "observe=", "M10 (observability)"),
         (shard, "shard=True", "M11 (placement)"),
         (participation is not None, "participation=", "M9 (participation)"),
@@ -50,13 +50,17 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
                                   "ROADMAP M5 (strategies)")
     if kind != "sflv3" or not split_family:
         raise ValueError(f"unknown method {method!r}")
+    if privacy is not None and privacy.secagg:
+        raise ValueError("secure aggregation applies to FL model uploads; "
+                         f"{method} ships activations, not updates")
     device = resolve_device(device)
     if transport is not None and transport.device != device:
         raise ValueError(f"transport on {transport.device}, strategy on "
                          f"{device}")
     use_full_fp32(device)
     return SplitFedV3(adapter, opt_factory, n_clients, schedule,
-                      transport=transport, device=device, engine=engine)
+                      transport=transport, privacy=privacy, device=device,
+                      engine=engine)
 
 
 __all__ = ["Strategy", "EpochLog", "SplitLearning", "SplitFedV3",

@@ -16,8 +16,9 @@ class SplitLearning(Strategy):
     name = "sl"
 
     def __init__(self, adapter, opt_factory, n_clients, schedule="ac",
-                 transport=None, **kw):
-        super().__init__(adapter, opt_factory, n_clients, **kw)
+                 transport=None, privacy=None, **kw):
+        super().__init__(adapter, opt_factory, n_clients, privacy=privacy,
+                         **kw)
         self.schedule = schedule
         self.transport = transport
         self.name = f"sl_{schedule}"

@@ -21,13 +21,13 @@ class SplitFedV3(SplitLearning):
     """Unique clients + gradient-averaged parallel server updates (Alg. 1)."""
 
     def __init__(self, adapter, opt_factory, n_clients, schedule="ac",
-                 transport=None, **kw):
+                 transport=None, privacy=None, **kw):
         super().__init__(adapter, opt_factory, n_clients, schedule,
-                         transport, **kw)
+                         transport, privacy, **kw)
         self.name = f"sflv3_{schedule}"
         self._opt_c, self._opt_s = opt_factory(), opt_factory()
         self._step3 = sflv3_step_fn(adapter, self._opt_c, self._opt_s,
-                                    n_clients, transport)
+                                    n_clients, transport, privacy)
 
     def setup(self, seed=0):
         """Draw one model per hospital from ``torch.Generator(seed)`` on the
@@ -64,8 +64,13 @@ class SplitFedV3(SplitLearning):
             (state["clients"], state["server"], state["c_opts"],
              state["s_opt"], losses) = self._step3(
                 state["clients"], state["server"], state["c_opts"],
-                state["s_opt"], [self.to_device(b) for b in host])
+                state["s_opt"], [self.to_device(b) for b in host],
+                self._next_step() if self._keyed else 0)
             step_losses.append(losses)
+            for c in range(self.n_clients):
+                # wrap-around resampling included: every client is touched
+                self._dp_account(c, len(client_data[c]["label"]),
+                                 batch_size)
             if self.transport is not None:
                 for b in host:
                     self.transport.account(self.adapter, b)

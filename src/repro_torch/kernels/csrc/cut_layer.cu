@@ -1,4 +1,4 @@
-// Cut-layer int8 link codec for Hopper (sm_90a): three kernels behind a
+// Cut-layer int8 link codec for Hopper (sm_90a): four kernels behind a
 // plain C interface, loaded with ctypes by repro_torch/kernels/build.py.
 //
 //   K1 cut_quantize   replaces src/repro/kernels/act_compress/act_compress.py
@@ -7,6 +7,9 @@
 //                     dequantize_pallas (_dequant_kernel)
 //   K3 cut_roundtrip  replaces src/repro/kernels/cut_fuse/cut_fuse.py
 //                     roundtrip_pallas (_roundtrip_kernel)
+//   K4 cut_noise_roundtrip
+//                     replaces src/repro/kernels/cut_fuse/cut_fuse.py
+//                     noise_roundtrip_pallas (_noise_kernel)
 //
 // What they compute, per row of a (T, D) tensor (one row is one (b, h, w)
 // position of an NHWC activation, D its channels):
@@ -21,10 +24,20 @@
 // q, scale and the roundtrip are bit-equal to the reference and to the
 // plain PyTorch versions beside the wrappers.  Inputs are assumed finite.
 //
+// K4 adds the cut-layer noise in the same pass:
+//   out = T(roundtrip) + T(z * w_row)        an f32 add rounded to T
+// with z the pre-scaled f32 noise and w the row's weight.  Each product is
+// rounded on its own (__fmul_rn, then to T) and the sum is __fadd_rn, so
+// nvcc's default -fmad=true cannot contract a product into an FMA: that is
+// the reference's pin_product order, and in bf16 XLA's f32 add rounded
+// once to bf16.  K4 equals K3 followed by the separate masked add, bit for
+// bit, in f32 and bf16.
+//
 // Bound on this card: bytes.  Per element K1 reads 4 (f32) and writes 1,
 // K2 reads 1 and writes 4, K3 reads 4 and writes 4, against a handful of
 // flops; at the main path's shape (T = 80 * 56 * 56 = 250,880, D = 160)
-// K3 moves 321 MB per step, about 96 us at 3.35 TB/s.
+// K3 moves 321 MB per step, about 96 us at 3.35 TB/s.  K4 reads x and z and
+// writes the output, 12 B per f32 element (483 MB, 0.144 ms at that shape).
 //
 // Design: one warp per row, eight rows per 256-thread block.  Lanes stride
 // over the row, so every warp load touches consecutive addresses; the row
@@ -116,6 +129,33 @@ __global__ void roundtrip_kernel(const T* __restrict__ x, T* __restrict__ out,
     store_f(orow + j, __fmul_rn(quant_level(load_f(xr + j), s), s));
 }
 
+// v rounded to T's precision and back to float (the identity for f32).
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
+__global__ void noise_roundtrip_kernel(const T* __restrict__ x,
+                                       const float* __restrict__ z,
+                                       const float* __restrict__ w,
+                                       T* __restrict__ out, long long rows,
+                                       int d) {
+  const long long row = warp_row();
+  if (row >= rows) return;
+  const int lane = threadIdx.x % kWarp;
+  const T* xr = x + row * d;
+  const float s = row_scale(xr, d, lane);
+  const float wr = w[row];
+  const float* zr = z + row * d;
+  T* orow = out + row * d;
+  for (int j = lane; j < d; j += kWarp) {
+    const float r = round_as(__fmul_rn(quant_level(load_f(xr + j), s), s), xr);
+    const float zw = round_as(__fmul_rn(zr[j], wr), xr);
+    store_f(orow + j, __fadd_rn(r, zw));
+  }
+}
+
 dim3 grid_for(long long rows) {
   return dim3(static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock));
 }
@@ -171,6 +211,24 @@ int cut_roundtrip(const void* x, void* out, long long rows, int d, int dtype,
     roundtrip_kernel<__nv_bfloat16><<<grid_for(rows), kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
         rows, d);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+int cut_noise_roundtrip(const void* x, const void* z, const void* w, void* out,
+                        long long rows, int d, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* zf = static_cast<const float*>(z);
+  const float* wf = static_cast<const float*>(w);
+  if (dtype == kF32)
+    noise_roundtrip_kernel<float><<<grid_for(rows), kThreads, 0, st>>>(
+        static_cast<const float*>(x), zf, wf, static_cast<float*>(out), rows,
+        d);
+  else if (dtype == kBF16)
+    noise_roundtrip_kernel<__nv_bfloat16><<<grid_for(rows), kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), zf, wf,
+        static_cast<__nv_bfloat16*>(out), rows, d);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

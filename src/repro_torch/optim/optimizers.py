@@ -58,3 +58,16 @@ def adam(lr: float, b1=0.9, b2=0.999, eps=1e-8) -> Optimizer:
 @torch.no_grad()
 def apply_updates(params, updates):
     return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params, updates)
+
+
+@torch.no_grad()
+def tree_gaussian_noise(tree, gen: torch.Generator, std: float):
+    """``tree + N(0, std^2)`` leaf-wise, each leaf's draw taken in turn from
+    ``gen`` (on the leaves' device) in f32, each leaf's dtype kept — the
+    counterpart of the reference's key-split-per-leaf version."""
+    if std <= 0:
+        return tree
+    return tree_map(
+        lambda l: l + (std * torch.randn(l.shape, generator=gen,
+                                         device=l.device)).to(l.dtype),
+        tree)

@@ -9,7 +9,8 @@ applies during training; every lossy codec backpropagates straight through
   * ``identity`` — ships the tensor as-is (the paper's measured regime).
   * ``bf16``     — casts to bfloat16 on the wire (2 bytes/element).
   * ``int8``     — per-row absmax int8 + one f32 scale per row over the LAST
-                   axis, on the K1/K2/K3 kernels (``repro_torch.kernels``).
+                   axis, on the K1/K2/K3 kernels (``repro_torch.kernels``),
+                   and K4 when cut-layer noise rides the same pass.
   * ``topk``     — top ``frac`` of elements by magnitude ship as (value,
                    int32 index) pairs, the rest decode to zero.
 
@@ -117,6 +118,13 @@ class Int8Codec(Codec):
         from repro_torch.kernels.cut_fuse.ops import roundtrip_boundary
         return roundtrip_boundary(x)
 
+    def fused_noise_roundtrip(self, x, z):
+        """K4: ``roundtrip(x) + z.to(x.dtype)`` in one launch, bit-equal to
+        ``roundtrip`` followed by the separate noise add; straight-through
+        in ``x``."""
+        from repro_torch.kernels.cut_fuse.ops import cut_noise_roundtrip
+        return cut_noise_roundtrip(x, z)
+
 
 class TopKCodec(Codec):
     """Magnitude top-k sparsification: ship (value, int32 index) pairs."""
@@ -134,7 +142,7 @@ class TopKCodec(Codec):
             out[idx] = flat[idx]
             return out.reshape(x.shape)
 
-        self._rt = straight_through(rt)
+        self._rt = straight_through(rt, rowwise=False)
 
     def _k(self, n: int) -> int:
         return max(1, int(math.ceil(self.frac * n)))

@@ -251,7 +251,7 @@ def test_port_setup_has_the_reference_layout(runs):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(privacy=object()), "M8"),
+    (dict(precision="bf16"), "M4"),
     (dict(observe=True), "M10"),
     (dict(shard=True), "M11"),
     (dict(participation=object()), "M9"),
