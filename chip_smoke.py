@@ -13,13 +13,20 @@ Phases, in order; any failure exits nonzero before the last line:
      K2(K1(x)) and K4 == K3 + the masked add; hold K5 (per-example squared
      norms) and K6 (scaled batch sum) within 1e-6 relative of theirs over
      one hospital's real 364-leaf per-example gradient table (16 x
-     6,948,609 f32) and a ragged small one; time each with CUDA events
-     beside its bound and, for K5/K6, one PyTorch call;
+     6,948,609 f32) and a ragged small one; hold K7 (flash attention)
+     within the reference's bars (2e-6 f32, 2e-2 bf16) at its test shapes,
+     a ragged GQA and a head_dim-128 case, and at the scoring shape (4 x
+     9/3 heads x 2048 x 64, causal: 1e-5 f32, 2e-2 bf16), and K8 (SSD
+     chunk) within 3e-4 at small shapes and at the scoring shape (4 x 16
+     chunks x 128 x 24 heads x 64, state 128); time each with CUDA events
+     beside its bound and, for K5-K7, one PyTorch call (K7: SDPA);
   4. train SplitFedv3 (``sflv3_ac``) on DenseNet-121-mini at 32^2 on the
      card and on the CPU from the same start, and hold the card's losses
      and scores against the CPU's plain path over an identity link (the
      int8 link's difference is printed); then the same privately (DP-SGD
-     with noise 0 and C = 1: deterministic), losses within 1e-4;
+     with noise 0 and C = 1: deterministic), losses within 1e-4; and run
+     SmolLM's and Mamba2's SMOKE configs in f32 on the card and the CPU
+     (scoring logits, loss, greedy tokens);
   5. the main path: SplitFedv3 on DenseNet-121 at 224^2, 5 synthetic
      hospitals, batch 16 per hospital, over ``Transport("int8")`` fused
      (K3) and unfused (K1, K2), then ``val_loss`` and
@@ -31,11 +38,18 @@ Phases, in order; any failure exits nonzero before the last line:
      losses bit-identical, every launch count nonzero, then
      ``privacy_report``, ``val_loss`` and ``evaluate``; and a cut-noise-only
      run (DP off) with one K4 launch per step over all hospitals' rows;
-  7. print one JSON line ``{"kernels": [...]}``, then the last line
-     ``{"ok": true, "device": {...}}``.
+  7. LM serving at published width, random weights, bf16: SmolLM-135M and
+     Mamba2-130M score 4 prompts of 2048 tokens with ``apply`` and
+     ``loss`` (use_pallas: K7 30 or K8 24 launches per forward), then over
+     the int8 cut link at layer 4 (K3 once more), each against the same
+     call with use_pallas=False; then ``greedy_generate`` 32 tokens after
+     4 prompts of 256 over the caches (no kernel), tokens per second;
+  8. print one JSON line ``{"kernels": [...]}`` (K1-K8), then the last
+     line ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds one profiled fused step of each main path
-(``torch.profiler``) and prints the device time by kernel.  The script imports nothing of JAX or of the
+``--profile`` adds one profiled fused step of each main path and one
+profiled scoring forward of each LM (``torch.profiler``) and prints the
+device time by kernel.  The script imports nothing of JAX or of the
 JAX package ``repro``.
 """
 
@@ -52,6 +66,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12              # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # bf16 tensor cores, dense
 MAIN_ROWS, MAIN_D = 80 * 56 * 56, 160   # the cut tensor of 5 x 16 images
 # operations per element of each kernel: K1 abs, max, divide, round, clamp;
 # K2 convert, multiply; K3 both; K4 K3's and the noise multiply and add;
@@ -61,6 +76,12 @@ BATCH = 16                       # images per hospital and step at 224^2
 PRIVACY = dict(noise_multiplier=1.0, clip_norm=1.0, cut_noise_std=0.5,
                seed=0)           # examples/private_splitfed.py's defaults
 CUDA_SRC = "src/repro_torch/kernels/csrc/"
+# the LM scoring path (phase 7): 4 prompts of 2048 tokens
+LM_BATCH, LM_SEQ = 4, 2048
+LM_ATTN = (LM_BATCH, 9, 3, LM_SEQ, 64)      # SmolLM-135M: B, H, KV, S, D
+LM_SSD = (LM_BATCH, LM_SEQ // 128, 128, 24, 64, 1, 128)  # Mamba2-130M:
+                                            # b, nc, q, h, p, g, n
+GEN_PROMPT, GEN_NEW = 256, 32               # greedy_generate, 4 prompts
 
 
 def log(*a):
@@ -96,12 +117,19 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def bound(name: str, rows: int, d: int, in_bytes: int, out_bytes: int):
+def roof(nbytes: int, ops):
     """(bound_ms, bound_by): the larger of the bytes the function must
-    move over HBM bandwidth and its operations over f32 peak."""
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_ELEM[name] * rows * d / F32_OPS_PER_S * 1e3
+    move over HBM bandwidth and its operations, ``[(count, peak per s),
+    ...]``, each over the card's peak rate for its operands' type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / peak for n, peak in ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(name: str, rows: int, d: int, in_bytes: int, out_bytes: int):
+    """The row kernels K1-K6: a few f32 operations per element."""
+    return roof(in_bytes + out_bytes,
+                [(OPS_PER_ELEM[name] * rows * d, F32_OPS_PER_S)])
 
 
 def max_err(a, b) -> float:
@@ -184,22 +212,24 @@ def check_kernels(dev):
     for key, name, replaces, kern, plain, nin, nout in rows:
         # no single PyTorch call computes per-row absmax int8 (K1-K4)
         table[key] = timed_row(key, name, "cut_layer.cu", replaces, kern,
-                               plain, None, (t, MAIN_D), nin, nout, err[key])
+                               plain, None, f"{t} x {MAIN_D} f32",
+                               bound(key, t, MAIN_D, nin, nout), err[key])
     del x, z, w, q, s
     table.update(check_dp_clip(dev, gen))
     return table
 
 
 def timed_row(key, name, source, replaces, kern, plain, library, shape,
-              nin, nout, err):
+              roofline, err):
     """Time a kernel, its plain version and (if any) one library call in
     the order plain, kernel, library, library, kernel, plain; each the
-    mean of its pair."""
+    mean of its pair.  ``roofline``: (bound_ms, bound_by); ``shape``: the
+    label of the timed shape."""
     p0, k0 = cuda_ms(plain), cuda_ms(kern)
     l0 = cuda_ms(library) if library else None
     l1 = cuda_ms(library) if library else None
     k1, p1 = cuda_ms(kern), cuda_ms(plain)
-    b_ms, b_by = bound(key, shape[0], shape[1], nin, nout)
+    b_ms, b_by = roofline
     row = {"name": name, "route": "cuda", "source": CUDA_SRC + source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": (k0 + k1) / 2, "plain_ms": (p0 + p1) / 2, "bound_ms": b_ms,
@@ -208,8 +238,7 @@ def timed_row(key, name, source, replaces, kern, plain, library, shape,
     lib = ("" if library is None
            else f", one library call {row['library_ms']:.4f} ms")
     log(f"  {key} {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} "
-        f"ms{lib}, bound {b_ms:.4f} ms by {b_by}) at {shape[0]} x "
-        f"{shape[1]} f32")
+        f"ms{lib}, bound {b_ms:.4f} ms by {b_by}) at {shape}")
     return row
 
 
@@ -276,16 +305,122 @@ def check_dp_clip(dev, gen):
             "src/repro/kernels/dp_clip/dp_clip.py:44",
             lambda: DC.sqnorms_leaves(lt),
             lambda: sum(RD.sqnorms_ref(l) for l in leaves_real),
-            lambda: torch.linalg.vecdot(big, big), (BATCH, d), 4 * n,
-            4 * BATCH, err["K5"]),
+            lambda: torch.linalg.vecdot(big, big), f"{BATCH} x {d} f32",
+            bound("K5", BATCH, d, 4 * n, 4 * BATCH), err["K5"]),
         "K6": timed_row(
             "K6", "dp_scale_accum", "dp_clip.cu",
             "src/repro/kernels/dp_clip/dp_clip.py:62",
             lambda: DC.scale_accum_leaves(lt, s),
             lambda: [RD.scale_accum_ref(l, s) for l in leaves_real],
-            lambda: s.reshape(1, BATCH) @ big, (BATCH, d), 4 * n + 4 * BATCH,
-            4 * d, err["K6"]),
+            lambda: s.reshape(1, BATCH) @ big, f"{BATCH} x {d} f32",
+            bound("K6", BATCH, d, 4 * n + 4 * BATCH, 4 * d), err["K6"]),
     }
+    return table
+
+
+def check_lm_kernels(dev, gen):
+    """K7 and K8 against their plain versions (f32 on the card: no TF32),
+    at the reference's kernel-test shapes with its bars (K7 2e-6 in f32,
+    2e-2 in bf16; K8 3e-4), at small ragged shapes, and at the scoring
+    shape of phase 7 in model layout; then timed at the scoring shape."""
+    import torch
+    from repro_torch.device import use_full_fp32
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.ssd_scan import ref as SR
+    from repro_torch.kernels.ssd_scan import ssd_scan as SS
+
+    use_full_fp32(dev)
+    err = {"K7": 0.0, "K8": 0.0}
+
+    def attn_inputs(b, h, kv, s, d, dt):
+        # model layout (B, S, H, D) in memory, as the path hands them over
+        return [torch.randn((b, s, n, d), device=dev, generator=gen).to(
+            dt).transpose(1, 2) for n in (h, kv, kv)]
+
+    # (shape, causal, dtype, bar): at the scoring shape the f32 sums run
+    # over up to 2048 keys in another order than the plain version's:
+    # 1e-5 in f32; bf16 keeps the reference's 2e-2 (one rounding of the
+    # output)
+    cases = [((1, 2, 1, 128, 64), c, dt, 2e-6 if dt == torch.float32
+              else 2e-2) for c in (True, False)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [((2, 4, 2, 256, 64), True, torch.float32, 2e-6),
+              ((2, 4, 2, 256, 64), False, torch.bfloat16, 2e-2),
+              ((1, 6, 2, 80, 32), True, torch.float32, 2e-6),    # ragged GQA
+              ((1, 4, 1, 96, 128), False, torch.bfloat16, 2e-2),
+              (LM_ATTN, True, torch.float32, 1e-5),
+              (LM_ATTN, True, torch.bfloat16, 2e-2)]
+    for shape, causal, dt, bar in cases:
+        q, k, v = attn_inputs(*shape, dt)
+        out = FA.flash_attention_bhsd(q, k, v, causal)
+        ref = FR.flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        e = max_err(out, ref)
+        err["K7"] = max(err["K7"], e)
+        log(f"  K7 {shape} {'causal' if causal else 'full'} "
+            f"{str(dt)[6:]}: max |kernel - plain| {e:.3g} (bar {bar:g})")
+        if not (out.dtype == dt and e <= bar):
+            fail(f"K7 disagrees with its plain version at {shape}")
+
+    def ssd_inputs(b, nc, q, h, p, g, n, dt):
+        """As mamba_apply makes them: xbar = x * dt, la = -dt * A (A from 1
+        to 16), B and C column slices of one (.., 2 g n + h) tensor."""
+        x = torch.randn((b, nc, q, h, p), device=dev, generator=gen)
+        dtv = torch.nn.functional.softplus(
+            torch.randn((b, nc, q, h), device=dev, generator=gen))
+        A = torch.linspace(1.0, 16.0, h, device=dev)
+        conv = torch.randn((b, nc, q, 2 * g * n + h), device=dev,
+                           generator=gen).to(dt)
+        return (x * dtv[..., None], -dtv * A,
+                conv[..., :g * n].unflatten(-1, (g, n)),
+                conv[..., g * n:2 * g * n].unflatten(-1, (g, n)))
+
+    for dims, dt in [((1, 4, 16, 2, 16, 1, 16), torch.float32),
+                     ((1, 3, 32, 3, 16, 1, 64), torch.float32),
+                     ((2, 3, 8, 8, 32, 2, 16), torch.bfloat16),
+                     (LM_SSD, torch.float32), (LM_SSD, torch.bfloat16)]:
+        args = ssd_inputs(*dims, dt)
+        got, want = SS.ssd_chunk(*args), SR.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        ok = all(torch.allclose(a, b, atol=3e-4, rtol=3e-4)
+                 for a, b in zip(got, want))
+        e = max(max_err(a, b) for a, b in zip(got, want))
+        err["K8"] = max(err["K8"], e)
+        log(f"  K8 {dims} B/C {str(dt)[6:]}: max |kernel - plain| {e:.3g}, "
+            f"within atol = rtol = 3e-4: {ok}")
+        if not ok:
+            fail(f"K8 disagrees with its plain version at {dims}")
+
+    # timed at the scoring shape, bf16 as the path runs them
+    q, k, v = attn_inputs(*LM_ATTN, torch.bfloat16)
+    b, h, kv, s, d = LM_ATTN
+    o = torch.empty_like(q)
+    pairs = b * h * s * (s + 1) // 2             # causal: keys j <= i
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
+    table = {"K7": timed_row(
+        "K7", "flash_attention_fwd", "flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:86",
+        lambda: FA.flash_attention_bhsd(q, k, v, True),
+        lambda: FR.flash_attention_ref(q, k, v, True),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        f"{LM_ATTN} bf16 causal",
+        roof(nbytes, [(4 * d * pairs, BF16_OPS_PER_S)]), err["K7"])}
+    del q, k, v, o
+    args = ssd_inputs(*LM_SSD, torch.bfloat16)
+    b, nc, qq, h, p, g, n = LM_SSD
+    outs = SS.ssd_chunk(*args)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
+    tri = b * nc * h * qq * (qq + 1) // 2        # (i, j) with j <= i
+    table["K8"] = timed_row(
+        "K8", "ssd_chunk_fwd", "ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/ssd_scan.py:61",
+        lambda: SS.ssd_chunk(*args), lambda: SR.ssd_chunk_ref(*args), None,
+        f"{LM_SSD} B/C bf16",
+        roof(nbytes, [(2 * tri * n, BF16_OPS_PER_S),
+                      (2 * tri * p + 2 * b * nc * h * qq * n * p,
+                       F32_OPS_PER_S)]), err["K8"])
     return table
 
 
@@ -529,6 +664,238 @@ def private_path(dev, clients, profile):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 4 and 7: the LM serving slice
+# ---------------------------------------------------------------------------
+
+def lm_kernels():
+    from repro_torch.kernels.cut_fuse import cut_fuse as CF
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.ssd_scan import ssd_scan as SS
+    return {"K3": CF.ROUNDTRIP, "K7": FA.FLASH, "K8": SS.SSD_CHUNK}
+
+
+def lm_tokens(vocab, seq, device):
+    """LM_BATCH prompts of ``seq`` tokens, one from each of LM_BATCH
+    synthetic clients (``lm_clients``, seed 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import lm_clients
+    return torch.from_numpy(np.concatenate(
+        lm_clients(0, vocab, LM_BATCH, 1, seq))).to(device)
+
+
+def lm_small_against_cpu(dev):
+    """SmolLM's and Mamba2's SMOKE configs in f32, on the card (K7, K8) and
+    on the CPU (their plain versions) from the same params: the scoring
+    logits within 5e-5 of their largest magnitude and the losses within
+    1e-5 (the CPU tests hold 1e-5 between XLA and ATen on one CPU; cuBLAS
+    sums in other tile orders), and equal greedy tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import mamba2_130m, smollm_135m
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.engine import greedy_generate
+    from repro_torch.tree import tree_map
+
+    kernels = lm_kernels()
+    for cfg in (smollm_135m.SMOKE, mamba2_130m.SMOKE):
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        model = TransformerLM.build(cfg)
+        params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+        out = {}
+        for device in ("cpu", dev):
+            p = tree_map(lambda t: t.to(device), params)
+            toks = lm_tokens(cfg.vocab_size, 65, device)
+            before = {k: v.launches for k, v in kernels.items()}
+            logits, _, _ = model.apply(p, toks[:, :-1], use_pallas=True)
+            loss = float(model.loss(p, {"tokens": toks}, train=False,
+                                    use_pallas=True))
+            gen = greedy_generate(model, p, toks[:, :16], max_new=8,
+                                  max_len=24, cache_dtype=torch.float32)
+            out[torch_type(device)] = (logits.cpu(), loss, gen.cpu(), {
+                k: v.launches - before[k] for k, v in kernels.items()})
+        (lc, fc, gc, _), (lg, fg, gg, n) = out["cpu"], out["cuda"]
+        dl = max_err(lg, lc)
+        scale = float(lc.abs().max())
+        log(f"  {cfg.name} f32 at {LM_BATCH} x 64: |logits card - cpu| {dl:.3g} "
+            f"(bar {5e-5 * scale:.3g}), losses {fg:.7f} / {fc:.7f}, greedy "
+            f"tokens equal {torch.equal(gg, gc)}, launches on the card {n}")
+        if not (dl <= 5e-5 * scale and abs(fg - fc) <= 1e-5
+                and torch.equal(gg, gc)):
+            fail(f"the card's {cfg.name} disagrees with the CPU's")
+
+
+def timed(fn):
+    """(result, host seconds) of one call between two synchronisations."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# Bars of the whole-model comparison kernel path vs plain path (phase 7),
+# by compute dtype: (relative RMS difference of the logits, max |diff| as a
+# share of the largest logit, or None: printed, not held).  Only summation
+# order differs between the paths, but a random-weight model 24-30 layers
+# deep amplifies it, and in bf16 (rounding at every op) Mamba2-130M's
+# logits decorrelate at some positions: on the CPU, with no CUDA kernel
+# (the kernel path takes the plain chunk function there), Mamba2-130M at
+# 2 x 256 tokens differs by a relative RMS of 3e-5 in f32 and 0.043 in bf16
+# (max 0.63 of a largest logit of 5.3); on the H100 at 4 x 2048 tokens by
+# 9.8e-5 in f32 and 0.084-0.113 in bf16 (max 2.1-2.7 of 6).  So the f32
+# comparison is the precise one; in bf16 the logits are held only against
+# a gross error (unrelated logits differ by a relative RMS of about 1.4),
+# and the bf16 eval losses within 1e-2.
+LOGIT_BARS = {"float32": (1e-3, 0.01), "bfloat16": (0.5, None)}
+
+
+def logits_agree(label, a, b) -> bool:
+    """Hold logits ``a`` against ``b`` by the bars of their dtype."""
+    import torch
+    rel_bar, max_bar = LOGIT_BARS[str(b.dtype)[6:]]
+    a, b = a.float(), b.float()
+    rel = float((a - b).norm() / b.norm())
+    mx, scale = max_err(a, b), float(b.abs().max())
+    ok = bool(torch.isfinite(a).all()) and rel <= rel_bar and (
+        max_bar is None or mx <= max_bar * scale)
+    log(f"    {label}: logits relative RMS diff {rel:.3g} (bar {rel_bar:g}), "
+        f"max |diff| {mx:.4g} of a largest {scale:.4g}"
+        + ("" if max_bar is None else f" (bar {max_bar:g} of it)")
+        + ("" if ok else "  FAILS"))
+    return ok
+
+
+def lm_path(dev, profile):
+    """Phase 7: SmolLM-135M (K7) and Mamba2-130M (K8) at their published
+    widths, random weights from seed 0.  Scoring in bf16 (the configs'
+    compute dtype): LM_BATCH prompts of LM_SEQ tokens through ``apply`` and
+    ``loss`` with use_pallas True, then with the int8 cut link (K3 once per
+    forward) at ``cut_layer`` 4, each held against the same call with
+    use_pallas False: losses within 1e-2, logits by ``LOGIT_BARS``; then
+    ``apply`` in f32 compute, kernels against plain by the f32 bars (the
+    precise comparison).
+    Generation: ``greedy_generate`` over the caches (no kernel), its
+    prefill logits held to the cacheless forward's last position.  Returns
+    the launches of K7 and K8 in this phase."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import mamba2_130m, smollm_135m
+    from repro_torch.kernels.cut_fuse.ops import roundtrip_boundary
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.engine import greedy_generate, make_prefill_step
+
+    kernels = lm_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    for cfg, key in ((smollm_135m.CONFIG, "K7"), (mamba2_130m.CONFIG, "K8")):
+        per = cfg.n_layers          # one launch per layer and forward
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = TransformerLM.build(cfg)
+        params = model.init_params(torch.Generator().manual_seed(0), dev)
+        toks = lm_tokens(cfg.vocab_size, LM_SEQ + 1, dev)
+        prompts = toks[:, :LM_SEQ]
+        log(f"  {cfg.name}: params and {LM_BATCH} x {LM_SEQ + 1} tokens "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+        def call(label, fn, want):
+            """One call; its launches must be ``want`` (K3, K7, K8)."""
+            before = {k: v.launches for k, v in kernels.items()}
+            out, sec = timed(fn)
+            n = {k: v.launches - before[k] for k, v in kernels.items()}
+            log(f"    {label}: {sec * 1e3:.3f} ms, launches {n}")
+            if n != want:
+                fail(f"{cfg.name} {label}: launches {n}, expected {want}")
+            return out, sec
+
+        none = {"K3": 0, "K7": 0, "K8": 0}
+        fwd = {**none, key: per}
+        link = {**fwd, "K3": 1}
+        res = {}
+        for pallas in (True, False):
+            want = fwd if pallas else none
+            tag = "kernels" if pallas else "plain"
+            for rep in (1, 2):      # the second is the steady time
+                (logits, _, _), sec = call(
+                    f"apply use_pallas={pallas} ({rep})",
+                    lambda: model.apply(params, prompts,
+                                        use_pallas=pallas), want)
+            loss, _ = call(f"loss use_pallas={pallas}", lambda: model.loss(
+                params, {"tokens": toks}, train=False, use_pallas=pallas),
+                want)
+            (llog, _, _), _ = call(
+                f"apply over the int8 link, use_pallas={pallas}",
+                lambda: model.apply(params, prompts, use_pallas=pallas,
+                                    boundary_fn=roundtrip_boundary),
+                link if pallas else {**none, "K3": 1})
+            lloss, _ = call(f"loss over the int8 link, use_pallas={pallas}",
+                            lambda: model.loss(params, {"tokens": toks},
+                                               train=False,
+                                               use_pallas=pallas,
+                                               boundary_fn=roundtrip_boundary),
+                            link if pallas else {**none, "K3": 1})
+            res[tag] = (logits, float(loss), llog, float(lloss), sec)
+            log(f"    scoring {tag}: {sec * 1e3:.3f} ms per forward, "
+                f"{LM_BATCH * LM_SEQ / sec:,.0f} tokens/s; eval loss "
+                f"{float(loss):.6f}, over the int8 link {float(lloss):.6f}")
+        (lk, fk, llk, flk, _), (lp, fp, llp, flp, _) = res["kernels"], \
+            res["plain"]
+        log(f"    kernels vs plain: loss diff {abs(fk - fp):.3g}, over the "
+            f"link {abs(flk - flp):.3g} (bar 1e-2)")
+        ok = [logits_agree("kernels vs plain, bf16", lk, lp),
+              logits_agree("kernels vs plain over the link, bf16", llk, llp),
+              abs(fk - fp) <= 1e-2, abs(flk - flp) <= 1e-2]
+        del lk, lp, llk, llp, res
+        m32 = TransformerLM.build(dataclasses.replace(
+            cfg, compute_dtype=torch.float32))
+        (lk, _, _), _ = call("apply in f32, use_pallas=True", lambda: m32.apply(
+            params, prompts, use_pallas=True), fwd)
+        (lp, _, _), _ = call("apply in f32, use_pallas=False",
+                             lambda: m32.apply(params, prompts), none)
+        ok.append(logits_agree("kernels vs plain, f32", lk, lp))
+        del lk, lp
+        if not all(ok):
+            fail(f"{cfg.name}: the kernel path disagrees with the plain one")
+
+        prompt = prompts[:, :GEN_PROMPT].contiguous()
+        max_len = GEN_PROMPT + GEN_NEW
+        out, sec = call(f"greedy_generate {LM_BATCH} x {GEN_PROMPT} + "
+                        f"{GEN_NEW}", lambda: greedy_generate(
+                            model, params, prompt, GEN_NEW, max_len), none)
+        log(f"    generation: {LM_BATCH * GEN_NEW / sec:,.1f} new tokens/s "
+            f"({sec:.3f} s with the prefill); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if out.shape != (LM_BATCH, GEN_NEW) or out.dtype != torch.int32 or \
+                not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+            fail(f"{cfg.name}: generated tokens malformed")
+        last, _ = make_prefill_step(model, max_len)(params,
+                                                    {"tokens": prompt})
+        if not logits_agree("prefill through the cache vs the cacheless "
+                            "forward's last position", last,
+                            model.apply(params, prompt)[0][:, -1]):
+            fail(f"{cfg.name}: prefill disagrees with the full forward")
+        if profile:
+            profile_call(lambda: model.apply(params, prompts,
+                                             use_pallas=True),
+                         f"{cfg.name} scoring forward ({LM_BATCH} x "
+                         f"{LM_SEQ})", LM_KERNEL_GROUPS)
+        del params, toks, prompts, out
+        torch.cuda.empty_cache()
+    launches = {k: kernels[k].launches for k in ("K7", "K8")}
+    log(f"  launches in phase 7: {launches}, K3 {kernels['K3'].launches}")
+    if not all(launches.values()):
+        fail(f"a kernel of the LM path never launched: {launches}")
+    return launches
+
+
 # kernel-name fragments of each share that --profile reports
 KERNEL_GROUPS = (
     ("hand kernels K1-K6", ("quantize_kernel", "roundtrip_kernel",
@@ -542,21 +909,41 @@ KERNEL_GROUPS = (
 )
 
 
+# the same for one LM scoring forward (phase 7)
+LM_KERNEL_GROUPS = (
+    ("hand kernels K3, K7, K8", ("flash_fwd_kernel", "ssd_chunk_kernel",
+                                 "roundtrip_kernel")),
+    ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "splitK")),
+    ("softmax / reductions", ("softmax", "reduce", "Reduce", "cumsum",
+                              "scan")),
+    ("cat / copy", ("CatArrayBatchedCopy", "copy", "cat")),
+    ("elementwise", ("elementwise_kernel",)),
+)
+
+
 def profile_step(strat, state, clients, batch, label):
-    """Device time of one more step, by kernel and by group, and the share
-    of the step's wall time the device was busy."""
+    """Device time of one more SplitFedv3 step (after a warm one)."""
     import numpy as np
+
+    data = [{k: v[:batch] for k, v in c.train.items()} for c in clients]
+    strat.run_epoch(state, data, np.random.default_rng(2), batch)  # warm
+    profile_call(lambda: strat.run_epoch(state, data,
+                                         np.random.default_rng(3), batch),
+                 f"{label} step", KERNEL_GROUPS)
+
+
+def profile_call(fn, label, kernel_groups):
+    """Device time of one call of ``fn``, by kernel and by group, and the
+    share of its wall time the device was busy."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    data = [{k: v[:batch] for k, v in c.train.items()} for c in clients]
-    strat.run_epoch(state, data, np.random.default_rng(2), batch)  # warm
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        strat.run_epoch(state, data, np.random.default_rng(3), batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted((e for e in prof.key_averages()
@@ -566,12 +953,12 @@ def profile_step(strat, state, clients, batch, label):
     if not total:
         log("  profile: no device time recorded (not measured)")
         return
-    log(f"  profile of one {label} step: kernels {total:.3f} ms on the "
+    log(f"  profile of one {label}: kernels {total:.3f} ms on the "
         f"device, {wall_ms:.3f} ms wall under the profiler, busy "
         f"{100 * total / wall_ms:.1f}%")
-    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    groups = dict.fromkeys([g for g, _ in kernel_groups] + ["other"], 0.0)
     for e in kernels:
-        name = next((g for g, frags in KERNEL_GROUPS
+        name = next((g for g, frags in kernel_groups
                      if any(f in e.key for f in frags)), "other")
         groups[name] += e.self_device_time_total / 1e3
     log("    by group: " + ", ".join(
@@ -615,9 +1002,12 @@ def main():
 
     log("phase 3: kernels against their plain versions")
     table = check_kernels(dev)
+    table.update(check_lm_kernels(dev, torch.Generator(device=dev)
+                                  .manual_seed(1)))
 
-    log("phase 4: the slice at small size, card against CPU")
+    log("phase 4: the slices at small size, card against CPU")
     small_against_cpu(dev)
+    lm_small_against_cpu(dev)
 
     log("phase 5: the main path, DenseNet-121 at 224^2")
     clients = main_data(args.steps)
@@ -625,6 +1015,10 @@ def main():
 
     log("phase 6: the private main path, DenseNet-121 at 224^2")
     launches.update(private_path(dev, clients, args.profile))
+    del clients
+
+    log("phase 7: LM serving, SmolLM-135M and Mamba2-130M")
+    launches.update(lm_path(dev, args.profile))
     for key, n in launches.items():
         table[key]["launches"] = n
 

@@ -1,1 +1,2 @@
-"""Model configurations of the paper."""
+"""Model configurations: the paper's CNNs and the LM architectures of this
+slice (SmolLM-135M, Mamba2-130M)."""

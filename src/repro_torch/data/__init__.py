@@ -1,1 +1,2 @@
-"""Synthetic hospitals (numpy; byte-identical to the reference)."""
+"""Synthetic hospitals and LM token streams (numpy; byte-identical to the
+reference)."""

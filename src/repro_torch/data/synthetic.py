@@ -7,8 +7,8 @@ shift (contrast, noise floor, blob intensity, spatial prior).  Prevalence is
 50% in train and 10% in val/test, matching §3.1 of the paper.
 
 The port keeps its own copy of the reference's generator (``repro/data/
-synthetic.py``): the same seed gives byte-identical numpy arrays.  The LM
-token streams wait for the LM slice.
+synthetic.py``), and of its LM token streams: the same seed gives
+byte-identical numpy arrays.
 """
 
 from __future__ import annotations
@@ -143,3 +143,28 @@ def batches(data, batch_size, rng=None, drop_remainder=True):
     for s in range(0, stop, batch_size):
         sel = idx[s:s + batch_size]
         yield {k: v[sel] for k, v in data.items()}
+
+
+# ---------------------------------------------------------------------------
+# token streams for the LM architectures
+# ---------------------------------------------------------------------------
+
+def token_stream(seed, vocab, n_seqs, seq_len, order=1):
+    """Markov token source — learnable structure for tiny-LM e2e runs."""
+    rng = np.random.default_rng(seed)
+    v_eff = min(vocab, 256)
+    trans = rng.dirichlet(np.full(v_eff, 0.1), size=v_eff).astype(np.float32)
+    cum = np.cumsum(trans, axis=1)
+    toks = np.zeros((n_seqs, seq_len), np.int32)
+    state = rng.integers(0, v_eff, n_seqs)
+    for t in range(seq_len):
+        u = rng.uniform(0, 1, n_seqs).astype(np.float32)
+        state = (cum[state] < u[:, None]).sum(axis=1).clip(0, v_eff - 1)
+        toks[:, t] = state
+    return toks
+
+
+def lm_clients(seed, vocab, n_clients, seqs_per_client, seq_len):
+    """Per-client token sources with different Markov chains (non-IID)."""
+    return [token_stream(seed + 17 * c, vocab, seqs_per_client, seq_len)
+            for c in range(n_clients)]

@@ -4,7 +4,11 @@ numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) and the port's.
   * conv weights: HWIO in the reference, OIHW in the port (any 4-D leaf);
   * a dense weight is (in, out) in both;
   * SplitFedv3's ``stacked_clients`` / ``c_opt`` carry a leading hospital
-    axis in the reference and are per-hospital lists in the port.
+    axis in the reference and are per-hospital lists in the port;
+  * an LM's params keep the reference's tree as it is (segment ->
+    ``run_<id>`` -> leaves with their leading layer axis), with no
+    transposition: a stacked LM leaf is not a conv weight, so they do not
+    go through ``params_from_jax``.
 
 Only numpy crosses this module; it imports nothing of the reference.
 """
@@ -60,3 +64,16 @@ def sflv3_state_from_jax(state, device="cpu"):
             "server": params_from_jax(state["server"], device),
             "c_opts": _adam_from_jax(state["c_opt"], device, n),
             "s_opt": _adam_from_jax(state["s_opt"], device)}
+
+
+def lm_params_from_jax(tree, device="cpu"):
+    """A reference LM param tree (numpy leaves) -> the port's, leaf for
+    leaf."""
+    return tree_map(lambda a: torch.from_numpy(
+        np.array(np.asarray(a), order="C")).to(device), tree)
+
+
+def lm_params_to_numpy(tree):
+    """The port's LM params -> a tree of numpy arrays in the reference's
+    layout (the inverse of ``lm_params_from_jax``)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -37,7 +37,7 @@ def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
-                           "cut-layer kernels are built with nvcc")
+                           "kernels are built with nvcc")
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 

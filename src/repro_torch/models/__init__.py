@@ -1,1 +1,1 @@
-"""CNN model families (DenseNet in this slice)."""
+"""Model families: DenseNet (CNN), the dense transformer and Mamba2."""

@@ -1,11 +1,15 @@
-"""CNN primitives of the paper's model families (the subset of
-``repro/models/layers.py`` that DenseNet uses).
+"""Primitives of the model families: the CNN subset of
+``repro/models/layers.py`` that DenseNet uses, and the LM subset (dense,
+RMSNorm, rotary embedding, GQA attention with its KV cache, SwiGLU,
+embedding) that the transformer and Mamba2 use.
 
 Parameters are plain dicts of tensors: conv weights are OIHW (the reference
 keeps HWIO; ``repro_torch.interop`` converts), a dense weight is (in, out).
-Activations are logically NCHW; a segment's input and output are NHWC in
+CNN activations are logically NCHW; a segment's input and output are NHWC in
 memory (``models/cnn.py`` says how).  Convolutions, GroupNorm and pools go
-to ATen / cuDNN.
+to ATen / cuDNN.  LM activations are (B, S, D) as in the reference, and
+each op promotes and casts where the reference's does (a bf16 tensor times
+an f32 one is f32 in both frameworks).
 
 Every ``*_init`` draws on the CPU from an explicit ``torch.Generator`` and
 then moves the tensor, so one seed gives the same weights on every device;
@@ -14,10 +18,13 @@ on the ``meta`` device nothing is drawn (shapes only).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
+
+INT32_MAX = torch.iinfo(torch.int32).max
 
 
 def _normal(gen, shape, scale, device, dtype=torch.float32):
@@ -47,6 +54,16 @@ def _pad_same(x, k, s, value=0.0):
 # dense
 # ---------------------------------------------------------------------------
 
+def dense_init(gen, in_dim, out_dim, device):
+    """Weight-only dense layer (bias-free, llama-style)."""
+    return {"w": _normal(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim),
+                         device)}
+
+
+def dense_apply(p, x):
+    return x @ p["w"].to(x.dtype)
+
+
 def bias_dense_init(gen, in_dim, out_dim, device):
     return {"w": _normal(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim),
                          device),
@@ -60,6 +77,17 @@ def bias_dense_apply(p, x):
 # ---------------------------------------------------------------------------
 # norm
 # ---------------------------------------------------------------------------
+
+def rmsnorm_init(dim, device):
+    return {"scale": torch.ones((dim,), device=device)}
+
+
+def rmsnorm_apply(p, x, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p["scale"].float()).to(dt)
+
 
 def groupnorm_init(channels, device):
     return {"scale": torch.ones((channels,), device=device),
@@ -110,3 +138,199 @@ def max_pool(x, window=2, stride=2, padding="VALID"):
 
 def global_avg_pool(x):
     return x.mean(dim=(2, 3))
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Rotates
+    halves (not interleaved pairs); the f32 angles promote a bf16 x to f32,
+    and the result is cast back, as in the reference."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., :, None].float() * freqs
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, causal, optional sliding window, KV-cache decode)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    sliding_window: int | None = None   # None => full causal
+    chunk_kv: int = 0                   # >0 => chunked (flash-style) prefill
+
+
+def attention_init(gen, cfg: AttnConfig, device):
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": _normal(gen, (d, h * hd), 1 / math.sqrt(d), device),
+            "wk": _normal(gen, (d, kvh * hd), 1 / math.sqrt(d), device),
+            "wv": _normal(gen, (d, kvh * hd), 1 / math.sqrt(d), device),
+            "wo": _normal(gen, (h * hd, d), 1 / math.sqrt(h * hd), device)}
+
+
+def _mask(positions, kv_positions, sliding_window):
+    """(B, S, T) bool: key t is visible from query s."""
+    mask = kv_positions[:, None, :] <= positions[:, :, None]
+    if sliding_window is not None:
+        mask &= kv_positions[:, None, :] > positions[:, :, None] - sliding_window
+    return mask
+
+
+def _full_causal_attn(q, k, v, positions, kv_positions, sliding_window):
+    """q: (B,S,H,hd)  k,v: (B,T,KV,hd).  Returns (B,S,H,hd)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, hd)
+    logits = torch.einsum("bsgrd,btgd->bgrst", qg.float(),
+                          k.float()) * (1.0 / math.sqrt(hd))
+    mask = _mask(positions, kv_positions, sliding_window)
+    logits = torch.where(mask[:, None, None], logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrst,btgd->bsgrd", w, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _chunked_attn(q, k, v, positions, kv_positions, sliding_window, chunk):
+    """Online softmax over KV chunks (the reference's ``lax.scan`` as a
+    loop); the running max starts at -inf, masked logits are -1e30."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    rep = h // kvh
+    t = k.shape[1]
+    n_chunks = (t + chunk - 1) // chunk
+    pad = n_chunks * chunk - t
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=INT32_MAX)
+    qg = q.reshape(b, s, kvh, rep, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    m = torch.full((b, kvh, rep, s), -math.inf, device=q.device)
+    l = torch.zeros((b, kvh, rep, s), device=q.device)
+    acc = torch.zeros((b, kvh, rep, s, hd), device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = torch.einsum("bsgrd,btgd->bgrst", qg, k[:, sl].float()) * scale
+        mask = _mask(positions, kv_positions[:, sl], sliding_window)
+        logits = torch.where(mask[:, None, None], logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrst,btgd->bgrsd", p, v[:, sl].float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
+    return out.to(q.dtype)
+
+
+def attention_apply(p, cfg: AttnConfig, x, positions, cache=None,
+                    use_pallas: bool = False):
+    """x: (B, S, D).  ``cache``: None for a cacheless forward, or one
+    layer's {"k": (B,T,KV,hd), "v": ..., "pos": (B,T) int32, "index": int}.
+    Returns (out, new_cache).
+
+    Unlike the reference, which returns new arrays, the cache's k, v and
+    pos are updated in place (so a decode step copies one token, not the
+    cache); ``new_cache`` holds those tensors and the new index.
+    ``use_pallas`` sends a cacheless, unwindowed forward to K7."""
+    b, s, d = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, kvh, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, kvh, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is not None:
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        cl = ck.shape[1]
+        if s >= cl:
+            # bulk prefill larger than a sliding-window ring cache: keep the
+            # last `cl` tokens (their natural ring slots when cl | s) and
+            # attend over the in-flight keys directly
+            ck.copy_(k[:, -cl:])
+            cv.copy_(v[:, -cl:])
+            cpos.copy_(positions[:, -cl:])
+            index = cache["index"] + s
+            k_all, v_all, kv_pos = k, v, positions
+        else:
+            # ring-buffer indexing: sliding-window caches allocate max_len ==
+            # window and wrap (harmless for full caches: index < max_len).
+            # The start is clamped so the update fits, as
+            # ``dynamic_update_slice`` clamps it
+            idx = cache["index"] % cl
+            at = min(idx, cl - s)
+            ck[:, at:at + s] = k
+            cv[:, at:at + s] = v
+            cpos[:, at:at + s] = positions
+            index = idx + s
+            k_all, v_all, kv_pos = ck, cv, cpos
+        new_cache = {"k": ck, "v": cv, "pos": cpos, "index": index}
+    else:
+        new_cache = None
+        k_all, v_all, kv_pos = k, v, positions
+
+    if use_pallas and cache is None and cfg.sliding_window is None:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        out = fa_ops.flash_attention(q, k_all, v_all, causal=True)
+    elif cfg.chunk_kv and k_all.shape[1] > cfg.chunk_kv:
+        out = _chunked_attn(q, k_all, v_all, positions, kv_pos,
+                            cfg.sliding_window, cfg.chunk_kv)
+    else:
+        out = _full_causal_attn(q, k_all, v_all, positions, kv_pos,
+                                cfg.sliding_window)
+    out = out.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+    return out, new_cache
+
+
+def attention_cache_init(cfg: AttnConfig, batch: int, max_len: int,
+                         dtype=torch.bfloat16, device=None):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch, max_len), INT32_MAX, dtype=torch.int32,
+                              device=device),
+            "index": 0}
+
+
+# ---------------------------------------------------------------------------
+# MLP and embeddings
+# ---------------------------------------------------------------------------
+
+def swiglu_init(gen, d_model, d_ff, device):
+    return {"wi": _normal(gen, (d_model, d_ff), 1 / math.sqrt(d_model), device),
+            "wg": _normal(gen, (d_model, d_ff), 1 / math.sqrt(d_model), device),
+            "wo": _normal(gen, (d_ff, d_model), 1 / math.sqrt(d_ff), device)}
+
+
+def swiglu_apply(p, x):
+    h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wi"].to(x.dtype))
+    return h @ p["wo"].to(x.dtype)
+
+
+def embedding_init(gen, vocab, d_model, device):
+    return {"table": _normal(gen, (vocab, d_model), 0.02, device)}
+
+
+def embedding_apply(p, ids, compute_dtype=None):
+    out = p["table"][ids]
+    return out.to(compute_dtype) if compute_dtype else out

@@ -1,0 +1,38 @@
+"""The port stands alone: no module of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax``, ``jaxlib`` or the JAX package ``repro``
+(its ``ast`` is read, so an import inside a function counts too)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _banned(source: str) -> list:
+    return [m for m in _imports(source) if m.split(".")[0] in BANNED]
+
+
+def _imports(source: str):
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_nothing_of_jax(path):
+    bad = _banned(path.read_text())
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_sees_the_banned_forms():
+    src = ("import jax.numpy as jnp\nfrom repro.models import layers\n"
+           "def f():\n    import jaxlib\nimport repro_torch\n"
+           "from repro_torch.models import layers\n")
+    assert sorted(_banned(src)) == ["jax.numpy", "jaxlib", "repro.models"]
