@@ -25,21 +25,23 @@ _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 SQNORMS = B.CudaKernel("dp_clip.cu", "dp_sqnorms", [_P, _I, _I, _N, _N, _P, _P])
 SCALE_ACCUM = B.CudaKernel("dp_clip.cu", "dp_scale_accum",
-                           [_P, _I, _I, _N, _N, _P, _P])
+                           [_P, _I, _I, _N, _P, _P])
 
-CHUNK = 4096     # columns of one leaf that one K5 or K6 block takes
+CHUNK = 4096     # columns of one leaf that one K5 block takes
+GROUP = 4        # adjacent columns one K6 thread takes (one float4 a row)
 
 
 @dataclasses.dataclass(frozen=True)
 class LeafTable:
     """A hospital's per-example gradient leaves, each a contiguous (B, n_l)
     f32 matrix, and, for CUDA leaves, the int64 device table K5 and K6 read
-    (pointers, lengths, K5's chunk prefix sums, K6's column prefix sums).
-    It is checked and uploaded once and serves both kernels."""
+    (``table_values``).  It is checked and uploaded once and serves both
+    kernels."""
     leaves: list
     batch: int
     lens: list
-    chunks: int                  # K6 blocks (K5 blocks per example)
+    chunks: int                  # K5 blocks per example
+    groups: int                  # K6 column groups, all leaves
     table: torch.Tensor | None   # None for CPU leaves (plain versions)
 
 
@@ -50,24 +52,35 @@ def _prefix(counts):
     return out
 
 
+def table_values(ptrs, lens) -> list:
+    """The int64 rows of the device table, for leaves at ``ptrs`` of
+    ``lens`` columns: the L pointers, the L lengths, K5's chunk prefix sums
+    (L + 1; ceil(n / CHUNK) chunks a leaf), the column prefix sums (L + 1;
+    where each leaf's sums start in K6's output) and K6's group prefix sums
+    (L + 1; ceil(n / GROUP) groups a leaf)."""
+    return (list(ptrs) + list(lens) + _prefix(-(-n // CHUNK) for n in lens)
+            + _prefix(lens) + _prefix(-(-n // GROUP) for n in lens))
+
+
 def leaf_table(leaves) -> LeafTable:
     """Check ``leaves`` and build their table (on the leaves' device)."""
     if not leaves:
         raise ValueError("leaf_table: no leaves")
     b, lens = leaves[0].shape[0], [l.shape[1] for l in leaves]
-    cprefix = _prefix(-(-n // CHUNK) for n in lens)
+    chunks = sum(-(-n // CHUNK) for n in lens)
+    groups = sum(-(-n // GROUP) for n in lens)
     if B.on_cpu(leaves[0], "leaf_table"):
-        return LeafTable(leaves, b, lens, cprefix[-1], None)
+        return LeafTable(leaves, b, lens, chunks, groups, None)
     dev = leaves[0].device
     for l in leaves:
         B.check_rows(l, (torch.float32,), "leaf_table")
         if l.shape[0] != b or l.device != dev:
             raise ValueError(f"leaf_table: every leaf must be (B={b}, n) on "
                              f"{dev}")
-    vals = [l.data_ptr() for l in leaves] + lens + cprefix + _prefix(lens)
+    vals = table_values([l.data_ptr() for l in leaves], lens)
     table = torch.tensor(vals, dtype=torch.int64).pin_memory().to(
         dev, non_blocking=True)
-    return LeafTable(leaves, b, lens, cprefix[-1], table)
+    return LeafTable(leaves, b, lens, chunks, groups, table)
 
 
 def sqnorms_leaves(t: LeafTable):
@@ -85,18 +98,26 @@ def sqnorms_leaves(t: LeafTable):
     return out
 
 
-def scale_accum_leaves(t: LeafTable, scales):
-    """scales: (B, 1) f32 -> list of (n_l,) f32, each ``sum_b scales[b] *
-    leaf[b]``."""
+def scale_accum_flat(t: LeafTable, scales):
+    """scales: (B, 1) f32 -> (sum n_l,) f32, the leaves' ``sum_b scales[b]
+    * leaf[b]`` one after another."""
     if t.table is None:
-        return [ref.scale_accum_ref(l, scales).reshape(-1) for l in t.leaves]
+        return torch.cat([ref.scale_accum_ref(l, scales).reshape(-1)
+                          for l in t.leaves])
     if (scales.device != t.table.device or scales.dtype != torch.float32
             or scales.numel() != t.batch):
-        raise ValueError("scale_accum_leaves: scales must be B f32 values "
+        raise ValueError("scale_accum_flat: scales must be B f32 values "
                          f"on {t.table.device}")
     out = torch.empty((sum(t.lens),), dtype=torch.float32,
                       device=t.table.device)
-    if t.chunks:
-        SCALE_ACCUM(t.table.data_ptr(), len(t.leaves), t.batch, t.chunks,
-                    CHUNK, scales.contiguous().data_ptr(), out.data_ptr())
-    return list(out.split(t.lens))
+    if t.groups:
+        SCALE_ACCUM(t.table.data_ptr(), len(t.leaves), t.batch, t.groups,
+                    scales.contiguous().data_ptr(), out.data_ptr())
+    return out
+
+
+def scale_accum_leaves(t: LeafTable, scales):
+    """scales: (B, 1) f32 -> list of (n_l,) f32, each ``sum_b scales[b] *
+    leaf[b]``: views of ``scale_accum_flat``'s output (cutting it into 364
+    views costs the host more than the kernel takes on the card)."""
+    return list(scale_accum_flat(t, scales).split(t.lens))

@@ -1,7 +1,9 @@
 """K7: causal GQA flash attention, forward only.
 
 Hopper counterpart of ``flash_attention_pallas``; the CUDA source and its
-design note are in ``kernels/csrc/flash_attention.cu``.  The kernel reads
+design note are in ``kernels/csrc/flash_attention.cu``: f32 runs on
+CUDA-core FMAs, bf16 on the tensor cores (P rounded to bf16 before P V,
+held to the reference's bf16 bar of 2e-2).  The kernel reads
 q, k and v by stride, so any (B, H, S, D) view with a contiguous last axis
 will do (the model's (B, S, H, D) tensors, transposed, are such views).  A
 CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
@@ -49,13 +51,15 @@ def check_shapes(q, k, v):
 
 def check_layout(t, name):
     """Raise unless the kernel can read ``t`` by stride: a contiguous last
-    axis, other strides multiples of 4 and a 16-byte aligned start (its
-    loads are 4 elements wide)."""
-    if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:-1]) \
+    axis, a 16-byte aligned start and other strides that keep every row
+    16-byte aligned, multiples of 4 in f32 (float4 loads) and of 8 in bf16
+    (16-byte cp.async)."""
+    per16 = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(st % per16 for st in t.stride()[:-1]) \
             or t.data_ptr() % 16:
         raise ValueError(f"flash attention: {name} needs a contiguous last "
-                         "axis, strides that are multiples of 4 and a "
-                         "16-byte aligned start")
+                         f"axis, strides that are multiples of {per16} and "
+                         "a 16-byte aligned start")
 
 
 def flash_attention_bhsd(q, k, v, causal=True):

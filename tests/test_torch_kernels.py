@@ -321,3 +321,37 @@ def test_clip_wrappers_on_cpu_count_no_launch_and_reject_meta():
         DC.leaf_table([meta])
     with pytest.raises(ValueError):
         CF.noise_roundtrip_rows(meta, meta, meta)
+
+
+@pytest.mark.parametrize("lens", [[130, 7, 1, 5000, 4097, 33], [5],
+                                  [4, 8, 3, 4097]])
+def test_leaf_table_values_cover_every_column_once(lens):
+    """The int64 table K5 and K6 read, for odd lengths: its five segments
+    at the offsets the kernels read them, and K6's groups of 4 columns
+    (each found by binary search in the group prefix sums, as the kernel
+    finds it) cover every column of every leaf once, each at its place in
+    the concatenated output."""
+    import bisect
+
+    n = len(lens)
+    ptrs = [4096 * (i + 1) for i in range(n)]
+    vals = DC.table_values(ptrs, lens)
+    assert len(vals) == 5 * n + 3
+    assert vals[:n] == ptrs and vals[n:2 * n] == lens
+    cprefix, prefix = vals[2 * n:3 * n + 1], vals[3 * n + 1:4 * n + 2]
+    gprefix = vals[4 * n + 2:]
+    assert cprefix == np.cumsum([0] + [-(-x // DC.CHUNK) for x in lens]
+                                ).tolist()
+    assert prefix == np.cumsum([0] + lens).tolist()
+    assert gprefix[-1] == sum(-(-x // DC.GROUP) for x in lens)
+    seen = []
+    for i in range(gprefix[-1]):
+        leaf = bisect.bisect_right(gprefix, i) - 1
+        col = DC.GROUP * (i - gprefix[leaf])
+        cnt = min(DC.GROUP, lens[leaf] - col)
+        assert cnt >= 1
+        seen += [prefix[leaf] + col + c for c in range(cnt)]
+    assert seen == list(range(sum(lens)))
+    table = DC.leaf_table([torch.zeros((2, x)) for x in lens])
+    assert (table.chunks, table.groups) == (cprefix[-1], gprefix[-1])
+

@@ -8,8 +8,14 @@ versions on the card).  Tolerances are the reference's own kernel tests'
 (``tests/test_kernels.py``): K7 2e-6 in f32 and 2e-2 in bf16 (the output
 is rounded to bf16 once, after an f32 softmax summed in another order);
 K8 and the whole SSD 3e-4 (f32 sums over up to 64 state dims and 32 rows
-in another order, then exponentials of cumulative sums).
+in another order, then exponentials of cumulative sums).  The bf16 CUDA
+kernel rounds P to bf16 before P V, which the plain version does not; a
+test of the design, not of the kernel, holds a test-local torch emulation
+of that arithmetic to the reference's bf16 bar against the Pallas kernel
+(the kernel itself is held against the plain version on the card).
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +26,7 @@ from repro.kernels.flash_attention.flash_attention import \
     flash_attention_pallas
 from repro.kernels.ssd_scan import ops as JS
 from repro.kernels.ssd_scan.ssd_scan import ssd_chunk_kernel
+from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.flash_attention import ops as TFO
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention_bhsd
@@ -79,6 +86,74 @@ def test_flash_attention_raises_where_repro_asserts(shapes):
     q, k = torch.zeros(qs), torch.zeros(ks)
     with pytest.raises(ValueError):
         flash_attention_bhsd(q, k, k)
+
+
+def _flash_bf16_tensor_core(q, k, v, causal, tile=64):
+    """The arithmetic of K7's bf16 tensor-core kernel, emulated in torch:
+    f32 scores of the bf16 q and k in log2 units (times f32(scale) *
+    f32(log2 e)), the online softmax over tiles of 64 keys in f32, P
+    rounded to bf16 before P V (f32 sums), l summed from the f32 P, the
+    output rounded to bf16 once."""
+    b, h, s, d = q.shape
+    rep = h // k.shape[1]
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(rep, dim=1) for t in (k, v))
+    sl2 = (torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+           * torch.tensor(math.log2(math.e), dtype=torch.float32))
+    neg = torch.tensor(-1e30)
+    m, l = torch.full((b, h, s), -1e30), torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, d))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        keys = torch.arange(k0, min(k0 + tile, s))[None, :]
+        x = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * sl2
+        if causal:
+            x = torch.where(keys <= rows, x, neg)
+        m_new = torch.maximum(m, x.amax(-1))
+        p = torch.exp2(x - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = (acc * corr[..., None]
+               + p.bfloat16().float() @ vf[:, :, k0:k0 + tile])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("b,h,kv,s,d", [(1, 2, 1, 128, 64),
+                                        (2, 4, 2, 256, 64),
+                                        (1, 6, 2, 80, 32),
+                                        (1, 4, 1, 96, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_p_rounding_design_stays_within_repro_bar(
+        b, h, kv, s, d, causal):
+    """The numerics design of the bf16 tensor-core kernel, not the kernel:
+    rounding P to bf16 before P V, as emulated in torch here, keeps the
+    output within the reference's bf16 bar, 2e-2, of the Pallas kernel, at
+    its test shapes, a ragged GQA case and head_dim 128 (S 80 and 96 end
+    in a partial 64-key tile)."""
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in [(b, h, s, d), (b, kv, s, d), (b, kv, s, d)])
+    want = flash_attention_pallas(*(jnp.asarray(a).astype(jnp.bfloat16)
+                                    for a in (q, k, v)), causal=causal)
+    got = _flash_bf16_tensor_core(*(torch.from_numpy(a).bfloat16()
+                                    for a in (q, k, v)), causal)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_check_layout_asks_16_byte_rows():
+    """The kernels read rows 16 bytes at a time: f32 strides must be
+    multiples of 4 elements, bf16 strides (cp.async) multiples of 8."""
+    f32 = torch.zeros((1, 2, 8, 36))[..., :32]       # row stride 36
+    FA.check_layout(f32, "q")
+    with pytest.raises(ValueError):
+        FA.check_layout(torch.zeros((1, 2, 8, 36), dtype=torch.bfloat16)
+                        [..., :32], "q")
+    FA.check_layout(torch.zeros((1, 2, 8, 40), dtype=torch.bfloat16)
+                    [..., :32], "q")
+    with pytest.raises(ValueError):
+        FA.check_layout(f32.transpose(-1, -2), "q")  # last axis strided
 
 
 def _ssd_chunk_inputs(b, nc, q, h, p, g, n, seed=0):
