@@ -11,16 +11,18 @@ Phases, in order; any failure exits nonzero before the last line:
      their plain PyTorch versions on the card, in f32 and bf16, at the main
      path's shape (250,880 x 160) and a ragged one (7 x 96), check K3 ==
      K2(K1(x)) and K4 == K3 + the masked add; hold K5 (per-example squared
-     norms) and K6 (scaled batch sum) within 1e-6 relative of theirs over
-     one hospital's real 364-leaf per-example gradient table (16 x
-     6,948,609 f32) and a ragged small one; hold K7 (flash attention: f32
-     on CUDA cores, bf16 on tensor cores) within the reference's bars (2e-6
-     f32, 2e-2 bf16) at its test shapes, a ragged GQA case in both types
-     and head_dim-128 cases in bf16, and at the scoring shape (4 x 9/3
-     heads x 2048 x 64, causal: 1e-5 f32, 2e-2 bf16), and K8 (SSD
-     chunk) within 3e-4 at small shapes and at the scoring shape (4 x 16
-     chunks x 128 x 24 heads x 64, state 128); time each with CUDA events
-     beside its bound and, for K5-K7, one PyTorch call (K7: SDPA);
+     norms) and K6 (scaled batch sum) within 1e-6 relative of the same
+     sums taken in double, over one hospital's real 364-leaf per-example
+     gradient table (16 x 6,948,609 f32) and a ragged small one; hold K7
+     (flash attention: f32 on CUDA cores, bf16 on tensor cores) within the
+     reference's bars (2e-6 f32, 2e-2 bf16) at its test shapes, a ragged
+     GQA case in both types and head_dim-128 cases in bf16, and at the
+     scoring shape (4 x 9/3 heads x 2048 x 64, causal: 1e-5 f32, 2e-2
+     bf16), and K8 (SSD chunk: C B^T on bf16 tensor cores) within 3e-4 at
+     small, grouped and ragged shapes (unaligned B/C rows too) and at the
+     scoring shape (4 x 16 chunks x 128 x 24 heads x 64, state 128) under
+     two dt ranges; time each with CUDA events beside its bound and, for
+     K5-K7, one PyTorch call (K7: SDPA);
   4. train SplitFedv3 (``sflv3_ac``) on DenseNet-121-mini at 32^2 on the
      card and on the CPU from the same start, and hold the card's losses
      and scores against the CPU's plain path over an identity link (the
@@ -256,8 +258,9 @@ def rel_err(a, b) -> float:
 def check_dp_clip(dev, gen):
     """K5 and K6 over one hospital's per-example gradient table of
     DenseNet-121 (364 leaves, 16 x 6,948,609 f32) and a ragged small table:
-    within 1e-6 relative of their plain versions (the kernels sum in
-    double, the plain versions in f32 in another order)."""
+    within 1e-6 relative of the same sums taken in double from the same f32
+    leaves and scales (the kernels sum in double; an f32 sum's own rounding
+    can exceed 1e-6 at a one-element leaf)."""
     import torch
     from repro_torch.configs.paper_models import DENSENET121_PAPER
     from repro_torch.core.partition import META, cnn_adapter
@@ -276,10 +279,10 @@ def check_dp_clip(dev, gen):
                   for n in sizes]
         lt = DC.leaf_table(leaves)
         sq = DC.sqnorms_leaves(lt)
-        sq_r = sum(RD.sqnorms_ref(l) for l in leaves).reshape(-1)
-        scales = RD.clip_scales(sq_r.reshape(b, 1), 1.0)
+        sq_r = sum((l.double() ** 2).sum(-1) for l in leaves)
+        scales = RD.clip_scales(sq_r.float().reshape(b, 1), 1.0)
         sums = DC.scale_accum_leaves(lt, scales)
-        sums_r = [RD.scale_accum_ref(l, scales).reshape(-1) for l in leaves]
+        sums_r = [(l.double() * scales.double()).sum(0) for l in leaves]
         torch.cuda.synchronize()
         r5 = rel_err(sq, sq_r)
         r6 = max(rel_err(a, b_) for a, b_ in zip(sums, sums_r))
@@ -327,11 +330,47 @@ def check_dp_clip(dev, gen):
     return table
 
 
+def seq_inner(t):
+    """The same values with the q axis (2) innermost in memory, as the
+    model's conv lays out xbar, B and C."""
+    order = [a for a in range(t.dim()) if a != 2] + [2]
+    return t.permute(order).contiguous().permute(
+        [order.index(a) for a in range(t.dim())])
+
+
+def ssd_inputs(dev, gen, b, nc, q, h, p, g, n, dt, skew=0, slow=False,
+               model_layout=False):
+    """K8's inputs on ``dev`` from ``gen``, as mamba_apply makes them:
+    xbar = x * dt, la = -dt * A (A from 1 to 16), B and C column slices of
+    one (.., 2 g n + h + skew) tensor (skew 1 makes their rows unaligned:
+    the kernel's scalar path); with ``model_layout`` xbar and that tensor
+    have the q axis innermost, as in the model.  dt is softplus(randn), as
+    this repo's random-weight Mamba2 (dt_bias 0) makes it, or with
+    ``slow`` log-uniform in [1e-3, 1e-1], the published Mamba2's
+    initialisation: there L = exp(cs_i - cs_j) stays near 1 across the
+    chunk, so every tile of C B^T reaches y_intra."""
+    import torch
+    x = torch.randn((b, nc, q, h, p), device=dev, generator=gen)
+    r = torch.rand((b, nc, q, h), device=dev, generator=gen) if slow \
+        else torch.randn((b, nc, q, h), device=dev, generator=gen)
+    dtv = 1e-3 * 100.0 ** r if slow else torch.nn.functional.softplus(r)
+    A = torch.linspace(1.0, 16.0, h, device=dev)
+    conv = torch.randn((b, nc, q, 2 * g * n + h + skew), device=dev,
+                       generator=gen).to(dt)
+    xbar = x * dtv[..., None]
+    if model_layout:
+        xbar, conv = seq_inner(xbar), seq_inner(conv)
+    return (xbar, -dtv * A,
+            conv[..., :g * n].unflatten(-1, (g, n)),
+            conv[..., g * n:2 * g * n].unflatten(-1, (g, n)))
+
+
 def check_lm_kernels(dev, gen):
     """K7 and K8 against their plain versions (f32 on the card: no TF32),
     at the reference's kernel-test shapes with its bars (K7 2e-6 in f32,
     2e-2 in bf16; K8 3e-4), at small ragged shapes, and at the scoring
-    shape of phase 7 in model layout; then timed at the scoring shape."""
+    shape of phase 7 in model layout; then timed at the scoring shape (K8
+    with bf16 B/C, its row, and with f32 B/C, printed)."""
     import torch
     from repro_torch.device import use_full_fp32
     from repro_torch.kernels.flash_attention import flash_attention as FA
@@ -387,32 +426,44 @@ def check_lm_kernels(dev, gen):
                 and (rbar is None or r <= rbar)):
             fail(f"K7 disagrees with its plain version at {shape}")
 
-    def ssd_inputs(b, nc, q, h, p, g, n, dt):
-        """As mamba_apply makes them: xbar = x * dt, la = -dt * A (A from 1
-        to 16), B and C column slices of one (.., 2 g n + h) tensor."""
-        x = torch.randn((b, nc, q, h, p), device=dev, generator=gen)
-        dtv = torch.nn.functional.softplus(
-            torch.randn((b, nc, q, h), device=dev, generator=gen))
-        A = torch.linspace(1.0, 16.0, h, device=dev)
-        conv = torch.randn((b, nc, q, 2 * g * n + h), device=dev,
-                           generator=gen).to(dt)
-        return (x * dtv[..., None], -dtv * A,
-                conv[..., :g * n].unflatten(-1, (g, n)),
-                conv[..., g * n:2 * g * n].unflatten(-1, (g, n)))
-
-    for dims, dt in [((1, 4, 16, 2, 16, 1, 16), torch.float32),
-                     ((1, 3, 32, 3, 16, 1, 64), torch.float32),
-                     ((2, 3, 8, 8, 32, 2, 16), torch.bfloat16),
-                     (LM_SSD, torch.float32), (LM_SSD, torch.bfloat16)]:
-        args = ssd_inputs(*dims, dt)
+    # (dims, B/C dtype, skew, slow, model layout): bf16 runs C B^T on the
+    # tensor cores, in partial (masked, zero-filled) tiles where q or n is
+    # not a multiple of 16 (q 8, 24, 12; n 20); B/C and xbar are staged
+    # along their rows (copy mode 1), down their columns (2: the model's
+    # layout), or by scalar loads (0: skew 1, 2 g n + h odd, or 12-row
+    # columns in the model's layout)
+    cases = [((1, 4, 16, 2, 16, 1, 16), torch.float32, 0, False, False),
+             ((1, 3, 32, 3, 16, 1, 64), torch.float32, 0, False, False),
+             ((2, 3, 8, 8, 32, 2, 16), torch.bfloat16, 0, False, False),
+             ((2, 3, 8, 8, 32, 2, 16), torch.bfloat16, 1, False, False),
+             ((2, 3, 8, 8, 32, 2, 16), torch.bfloat16, 0, False, True),
+             ((1, 2, 24, 4, 32, 2, 32), torch.bfloat16, 0, False, False),
+             ((1, 2, 24, 4, 32, 2, 32), torch.bfloat16, 4, False, False),
+             ((1, 2, 24, 4, 32, 2, 32), torch.bfloat16, 0, False, True),
+             ((1, 2, 24, 4, 32, 2, 32), torch.float32, 0, False, False),
+             ((1, 2, 24, 4, 32, 2, 32), torch.float32, 0, False, True),
+             ((1, 2, 12, 2, 12, 1, 20), torch.bfloat16, 0, False, False),
+             ((1, 2, 12, 2, 12, 1, 20), torch.bfloat16, 0, False, True),
+             ((1, 2, 12, 2, 12, 1, 20), torch.float32, 0, False, False),
+             (LM_SSD, torch.float32, 0, False, False),
+             (LM_SSD, torch.bfloat16, 0, False, False),
+             (LM_SSD, torch.float32, 0, True, False),
+             (LM_SSD, torch.bfloat16, 0, True, False),
+             (LM_SSD, torch.float32, 0, False, True),
+             (LM_SSD, torch.bfloat16, 0, False, True),
+             (LM_SSD, torch.bfloat16, 0, True, True)]
+    for dims, dt, skew, slow, model_layout in cases:
+        args = ssd_inputs(dev, gen, *dims, dt, skew, slow, model_layout)
         got, want = SS.ssd_chunk(*args), SR.ssd_chunk_ref(*args)
         torch.cuda.synchronize()
         ok = all(torch.allclose(a, b, atol=3e-4, rtol=3e-4)
                  for a, b in zip(got, want))
         e = max(max_err(a, b) for a, b in zip(got, want))
         err["K8"] = max(err["K8"], e)
-        log(f"  K8 {dims} B/C {str(dt)[6:]}: max |kernel - plain| {e:.3g}, "
-            f"within atol = rtol = 3e-4: {ok}")
+        modes = SS.kernel_dims(*args)[26:]
+        log(f"  K8 {dims} B/C {str(dt)[6:]} (copy modes B/C {modes[0]}, "
+            f"xbar {modes[1]}{', dt in [1e-3, 1e-1]' if slow else ''}): max "
+            f"|kernel - plain| {e:.3g}, within atol = rtol = 3e-4: {ok}")
         if not ok:
             fail(f"K8 disagrees with its plain version at {dims}")
 
@@ -432,19 +483,32 @@ def check_lm_kernels(dev, gen):
         f"{LM_ATTN} bf16 causal",
         roof(nbytes, [(4 * d * pairs, BF16_OPS_PER_S)]), err["K7"])}
     del q, k, v, o
-    args = ssd_inputs(*LM_SSD, torch.bfloat16)
+    # timed at the scoring shape in the model's layout with bf16 B/C, as the
+    # path runs it (the row); then printed: the row-major layout, and f32
+    # B/C (C B^T on the CUDA cores, one block an SM)
     b, nc, qq, h, p, g, n = LM_SSD
-    outs = SS.ssd_chunk(*args)
-    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
     tri = b * nc * h * qq * (qq + 1) // 2        # (i, j) with j <= i
-    table["K8"] = timed_row(
-        "K8", "ssd_chunk_fwd", "ssd_scan.cu",
-        "src/repro/kernels/ssd_scan/ssd_scan.py:61",
-        lambda: SS.ssd_chunk(*args), lambda: SR.ssd_chunk_ref(*args), None,
-        f"{LM_SSD} B/C bf16",
-        roof(nbytes, [(2 * tri * n, BF16_OPS_PER_S),
-                      (2 * tri * p + 2 * b * nc * h * qq * n * p,
-                       F32_OPS_PER_S)]), err["K8"])
+    for dt, model_layout in ((torch.bfloat16, True), (torch.bfloat16, False),
+                             (torch.float32, True)):
+        args = ssd_inputs(dev, gen, *LM_SSD, dt, model_layout=model_layout)
+        outs = SS.ssd_chunk(*args)
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
+        bf16 = dt == torch.bfloat16
+        label = (f"{LM_SSD} B/C {str(dt)[6:]}, "
+                 f"{'model' if model_layout else 'row-major'} layout")
+        log(f"  K8 at {label}: copy modes {SS.kernel_dims(*args)[26:]}, "
+            f"{SS.blocks_per_sm(*args)} blocks an SM")
+        row = timed_row(
+            "K8", "ssd_chunk_fwd", "ssd_scan.cu",
+            "src/repro/kernels/ssd_scan/ssd_scan.py:61",
+            lambda: SS.ssd_chunk(*args), lambda: SR.ssd_chunk_ref(*args),
+            None, label,
+            roof(nbytes, [(2 * tri * n,
+                           BF16_OPS_PER_S if bf16 else F32_OPS_PER_S),
+                          (2 * tri * p + 2 * b * nc * h * qq * n * p,
+                           F32_OPS_PER_S)]), err["K8"])
+        table.setdefault("K8", row)
+        del args, outs
     return table
 
 

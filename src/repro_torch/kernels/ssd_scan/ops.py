@@ -17,7 +17,7 @@ def ssd(x, dt, A, B, C, chunk):
     g, n = B.shape[2], B.shape[3]
     if l % chunk:
         raise ValueError(f"ssd: seq {l} not divisible by chunk {chunk}")
-    nc, q = l // chunk, chunk
+    nc, q, rep = l // chunk, chunk, h // g
 
     xbar = (x * dt[..., None]).reshape(b, nc, q, h, p)
     la = (-dt * A).float().reshape(b, nc, q, h)
@@ -25,15 +25,26 @@ def ssd(x, dt, A, B, C, chunk):
     Cc = C.reshape(b, nc, q, g, n)
     y_intra, states, dte, dfs = ssd_chunk(xbar, la, Bc, Cc)
 
-    a_last = torch.exp(la.sum(dim=2))                       # (b, nc, h)
-    s = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
-    prev = []
-    for c in range(nc):                 # state BEFORE each chunk
-        prev.append(s)
-        s = s * a_last[:, c, :, None, None] + states[:, c]
-    prev = torch.stack(prev, dim=1)                         # (b,nc,h,n,p)
+    # the state before each chunk, stored (b, nc, g, n, rep, p) so that one
+    # matrix product per (b, c, g) takes a group's rep heads side by side;
+    # `before` views it (b, nc, g, rep, n, p), as the kernel's states
+    a_last = torch.exp(la.sum(dim=2)).view(b, nc, g, rep, 1, 1)
+    st = states.view(b, nc, g, rep, n, p)
+    prev = torch.empty((b, nc, g, n, rep, p), dtype=torch.float32,
+                       device=x.device)
+    before = prev.permute(0, 1, 2, 4, 3, 5)
+    before[:, 0].zero_()
+    for c in range(1, nc):
+        torch.addcmul(st[:, c - 1], before[:, c - 1], a_last[:, c - 1],
+                      out=before[:, c])
+    final = before[:, -1] * a_last[:, -1] + st[:, -1]       # (b,g,rep,n,p)
 
-    Crep = Cc.repeat_interleave(h // g, dim=3).float()      # (b,nc,q,h,n)
-    y_inter = torch.einsum("bcqhn,bchnp,bcqh->bcqhp", Crep, prev, dfs)
-    y = (y_intra + y_inter).reshape(b, l, h, p).to(x.dtype)
-    return y, s.transpose(-1, -2)                           # (b,h,p,n)
+    # y_inter[q, (r, p)] = C[q, :] @ prev[:, (r, p)]: C in f32 once per
+    # group, not per head; then y_intra += y_inter * dfs in place
+    Cg = Cc.permute(0, 1, 3, 2, 4).float().reshape(b * nc * g, q, n)
+    y_inter = torch.bmm(Cg, prev.view(b * nc * g, n, rep * p))
+    y_intra.view(b, nc, q, g, rep, p).addcmul_(
+        y_inter.view(b, nc, g, q, rep, p).transpose(2, 3),
+        dfs.view(b, nc, q, g, rep, 1))
+    y = y_intra.reshape(b, l, h, p).to(x.dtype)
+    return y, final.reshape(b, h, n, p).transpose(-1, -2)   # (b,h,p,n)

@@ -3,9 +3,10 @@ decay vectors), one launch for every (batch, chunk, head).
 
 Hopper counterpart of ``ssd_chunk_kernel``; the CUDA source and its design
 note are in ``kernels/csrc/ssd_scan.cu``.  B and C are read in their own
-type; every input is read by the strides of all its axes (the model
-passes bf16 column slices of its conv output).  A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor
-launches the kernel or raises.
+type (bf16 B/C take the tensor cores for C Bᵀ); every input is read by the
+strides of all its axes (the model passes bf16 column slices of its conv
+output).  A CPU tensor takes the plain version in ``ref.py``; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,6 +41,49 @@ def check_kernel_args(xbar, la, B, C):
                              f"on {xbar.device}, got {t.dtype} on {t.device}")
 
 
+def copy_mode(t: torch.Tensor) -> int:
+    """How the kernel stages ``t`` (b, nc, q, g or h, n or p): 1 by 16-byte
+    copies along its last axis (contiguous), 2 by 16-byte loads down its q
+    axis (contiguous: the model's conv output puts the sequence innermost),
+    0 by scalar loads.  1 and 2 need every 16-byte piece whole and aligned:
+    that axis a whole number of 16 bytes, and the start and every other
+    stride (of an axis longer than 1) multiples of 16 bytes."""
+    es = t.element_size()
+
+    def aligned(axis):
+        return t.data_ptr() % 16 == 0 and all(
+            s * es % 16 == 0 for a, (s, d) in enumerate(zip(t.stride(),
+                                                            t.shape))
+            if a != axis and d > 1)
+
+    for mode, axis in ((1, t.dim() - 1), (2, 2)):
+        if t.stride(axis) == 1 and t.shape[axis] * es % 16 == 0 \
+                and aligned(axis):
+            return mode
+    return 0
+
+
+def kernel_dims(xbar, la, B, C) -> list[int]:
+    """The 28 values of the C entry point's ``dims``: the sizes, every
+    stride of the four inputs, and the copy modes of B and C (0 unless
+    both take the same) and of xbar."""
+    b, nc, q, h, p = xbar.shape
+    dims = [b, nc, q, h, p, B.shape[3], B.shape[4]]
+    for t in (xbar, la, B, C):
+        dims += list(t.stride())
+    mode = copy_mode(B)
+    return dims + [mode if copy_mode(C) == mode else 0, copy_mode(xbar)]
+
+
+def blocks_per_sm(xbar, la, B, C) -> int:
+    """Blocks of the kernel one SM holds at once for these inputs (the
+    occupancy the CUDA runtime reports; launches nothing)."""
+    dims = kernel_dims(xbar, la, B, C)
+    fn = Bld.load(SSD_CHUNK.source).ssd_chunk_blocks_per_sm
+    fn.argtypes, fn.restype = [_P, ctypes.c_int], ctypes.c_int
+    return fn((ctypes.c_longlong * len(dims))(*dims), Bld.DTYPE_CODES[B.dtype])
+
+
 def ssd_chunk(xbar, la, B, C):
     """xbar: (b, nc, q, h, p) f32, la: (b, nc, q, h) f32, B, C: (b, nc, q,
     g, n) f32 or bf16.  Returns y_intra (b, nc, q, h, p), states (b, nc, h,
@@ -63,9 +107,7 @@ def ssd_chunk(xbar, la, B, C):
     dte = torch.empty((b, nc, q, h), **f32)
     dfs = torch.empty((b, nc, q, h), **f32)
     if y.numel() or states.numel():
-        dims = [b, nc, q, h, p, g, n]
-        for t in (xbar, la, B, C):
-            dims += list(t.stride())
+        dims = kernel_dims(xbar, la, B, C)
         SSD_CHUNK(xbar.data_ptr(), la.data_ptr(), B.data_ptr(), C.data_ptr(),
                   y.data_ptr(), states.data_ptr(), dte.data_ptr(),
                   dfs.data_ptr(), (ctypes.c_longlong * len(dims))(*dims),

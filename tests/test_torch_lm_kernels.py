@@ -167,7 +167,8 @@ def _ssd_chunk_inputs(b, nc, q, h, p, g, n, seed=0):
 
 @pytest.mark.parametrize("dims", [(1, 4, 16, 2, 16, 1, 16),
                                   (2, 3, 32, 4, 16, 2, 64),
-                                  (1, 2, 8, 4, 32, 1, 16)])
+                                  (1, 2, 8, 4, 32, 1, 16),
+                                  (1, 2, 24, 4, 32, 2, 32)])   # q % 16 != 0
 @pytest.mark.parametrize("bc", ["f32", "bf16"])
 def test_ssd_chunk_matches_repro(dims, bc):
     """All four outputs (y_intra, states, dte, dfs), B and C in f32 or
@@ -185,17 +186,27 @@ def test_ssd_chunk_matches_repro(dims, bc):
                                    atol=3e-4, rtol=3e-4)
 
 
-@pytest.mark.parametrize("b,l,h,p,g,n,q", [(1, 64, 2, 16, 1, 16, 16),
-                                           (1, 96, 3, 16, 1, 64, 32)])
-def test_ssd_ops_matches_repro(b, l, h, p, g, n, q):
+@pytest.mark.parametrize("b,l,h,p,g,n,q,bc", [
+    pytest.param(1, 64, 2, 16, 1, 16, 16, "f32", id="1-64-2-16-1-16-16"),
+    pytest.param(1, 96, 3, 16, 1, 64, 32, "f32", id="1-96-3-16-1-64-32"),
+    (2, 64, 4, 16, 2, 16, 16, "f32"),      # g 2, rep 2: C over its group
+    (2, 64, 4, 16, 2, 16, 16, "bf16"),
+    (1, 96, 3, 16, 1, 64, 32, "bf16"),
+    (1, 72, 6, 8, 3, 12, 24, "f32")])      # g 3, rep 2, q % 16 != 0
+def test_ssd_ops_matches_repro(b, l, h, p, g, n, q, bc):
+    """The whole chunked SSD, B and C in f32 or bf16 (as the model passes
+    them; x and dt f32), against the reference within its 3e-4."""
+    jd, td, _ = DTYPES[bc]
     rng = np.random.default_rng(0)
     x = rng.standard_normal((b, l, h, p)).astype(np.float32)
     dt = np.log1p(np.exp(rng.standard_normal((b, l, h)))).astype(np.float32)
     A = np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)
     B = (rng.standard_normal((b, l, g, n)) * 0.5).astype(np.float32)
     C = (rng.standard_normal((b, l, g, n)) * 0.5).astype(np.float32)
-    yj, fj = JS.ssd(*map(jnp.asarray, (x, dt, A, B, C)), q)
-    yt, ft = TS.ssd(*map(torch.from_numpy, (x, dt, A, B, C)), q)
+    yj, fj = JS.ssd(*map(jnp.asarray, (x, dt, A)),
+                    jnp.asarray(B).astype(jd), jnp.asarray(C).astype(jd), q)
+    yt, ft = TS.ssd(*map(torch.from_numpy, (x, dt, A)),
+                    torch.from_numpy(B).to(td), torch.from_numpy(C).to(td), q)
     assert yt.shape == (b, l, h, p) and ft.shape == (b, h, p, n)
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=3e-4,
                                rtol=3e-4)
@@ -215,6 +226,62 @@ def test_ssd_wrappers_raise_on_bad_shapes():
     with pytest.raises(ValueError):
         TS.ssd(x, torch.ones((1, 20, 2)), torch.ones(2),
                torch.zeros((1, 20, 1, 8)), torch.zeros((1, 20, 1, 8)), 8)
+
+
+@pytest.mark.parametrize("width,offset,n,seq_inner,want", [
+    (1792, 1536, 128, False, 1),     # B of a row-major conv output
+    (288, 272, 16, False, 1),        # C of the SMOKE config's
+    (289, 256, 16, False, 0),        # odd row stride
+    (288, 252, 16, False, 0),        # start 8 bytes off
+    (132, 0, 20, False, 0),          # 40-byte rows
+    (1792, 1536, 128, True, 2),      # the model's layout: sequence innermost
+    (288, 272, 16, True, 2)])
+def test_ssd_kernel_dims_pick_the_copy_path(width, offset, n, seq_inner,
+                                            want):
+    """K8 stages B and C by 16-byte pieces only where each lies whole and
+    aligned along a contiguous axis (the state axis: 1, the sequence: 2);
+    its C entry point gets the sizes, all 19 strides and the two modes."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as SSm
+
+    conv = (torch.zeros((width, 2, 32), dtype=torch.bfloat16).permute(1, 2, 0)
+            if seq_inner else torch.zeros((2, 32, width), dtype=torch.bfloat16))
+    Bv = conv[..., offset:offset + n].unflatten(1, (2, 16)).unsqueeze(3)
+    xbar = torch.zeros((2, 2, 16, 4, 8))
+    la = torch.zeros((2, 2, 16, 4))
+    assert SSm.copy_mode(Bv) == want and SSm.copy_mode(xbar) == 1
+    dims = SSm.kernel_dims(xbar, la, Bv, Bv)
+    assert dims[:7] == [2, 2, 16, 4, 8, 1, n] and len(dims) == 28
+    assert dims[16:21] == list(Bv.stride()) and dims[26:] == [want, 1]
+    assert SSm.copy_mode(xbar[..., :6]) == 0        # 24-byte rows of xbar
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_model_hands_k8_inputs_a_16_byte_copy_path(dt, monkeypatch):
+    """The Mamba2 forward's xbar, B and C (the sequence innermost, as its
+    conv lays them out) take one of K8's 16-byte staging paths, not the
+    scalar one."""
+    import dataclasses
+
+    from repro_torch.configs import mamba2_130m
+    from repro_torch.kernels.ssd_scan import ssd_scan as SSm
+    from repro_torch.models.transformer import TransformerLM
+
+    modes = []
+
+    def ssd(xbar, la, B, C):
+        modes.append(SSm.kernel_dims(xbar, la, B, C)[26:])
+        return ssd_chunk(xbar, la, B, C)
+
+    monkeypatch.setattr(TS, "ssd_chunk", ssd)
+    cfg = mamba2_130m.SMOKE
+    model = TransformerLM.build(dataclasses.replace(
+        cfg, compute_dtype=DTYPES[dt][1]))
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    model.apply(params, toks, use_pallas=True)
+    assert len(modes) == cfg.n_layers
+    assert all(bc and x for bc, x in modes), modes
 
 
 @pytest.mark.parametrize("name", ["smollm", "mamba2"])
