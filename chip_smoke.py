@@ -10,26 +10,31 @@ Phases, in order; any failure exits nonzero before the last line:
      (fused roundtrip + cut noise, masked and unmasked) bit for bit against
      their plain PyTorch versions on the card, in f32 and bf16, at the main
      path's shape (250,880 x 160) and a ragged one (7 x 96), check K3 ==
-     K2(K1(x)) and K4 == K3 + the masked add; hold K5 (per-example squared
-     norms) and K6 (scaled batch sum) within 1e-6 relative of the same
-     sums taken in double, over one hospital's real 364-leaf per-example
-     gradient table (16 x 6,948,609 f32) and a ragged small one; hold K7
-     (flash attention: f32 on CUDA cores, bf16 on tensor cores) within the
-     reference's bars (2e-6 f32, 2e-2 bf16) at its test shapes, a ragged
-     GQA case in both types and head_dim-128 cases in bf16, and at the
-     scoring shape (4 x 9/3 heads x 2048 x 64, causal: 1e-5 f32, 2e-2
-     bf16), and K8 (SSD chunk: C B^T on bf16 tensor cores) within 3e-4 at
-     small, grouped and ragged shapes (unaligned B/C rows too) and at the
-     scoring shape (4 x 16 chunks x 128 x 24 heads x 64, state 128) under
-     two dt ranges; time each with CUDA events beside its bound and, for
-     K5-K7, one PyTorch call (K7: SDPA);
+     K2(K1(x)) and K4 == K3 + the masked add, and K3 once more at the
+     U-Net's widest boundary leaf (5,898,240 x 64 f32) and past 2^31
+     elements (33,554,440 x 64 bf16: row offsets that only 64-bit
+     arithmetic forms); hold K5
+     (per-example squared norms) and K6 (scaled batch sum) within 1e-6
+     relative of the same sums taken in double, over one hospital's real
+     364-leaf per-example gradient table (16 x 6,948,609 f32) and a ragged
+     small one; hold K7 (flash attention: f32 on CUDA cores, bf16 on
+     tensor cores) within the reference's bars (2e-6 f32, 2e-2 bf16) at
+     its test shapes, a ragged GQA case in both types and head_dim-128
+     cases in bf16, and at the scoring shape (4 x 9/3 heads x 2048 x 64,
+     causal: 1e-5 f32, 2e-2 bf16), and K8 (SSD chunk: C B^T on bf16 tensor
+     cores) within 3e-4 at small, grouped and ragged shapes (unaligned B/C
+     rows too) and at the scoring shape (4 x 16 chunks x 128 x 24 heads x
+     64, state 128) under two dt ranges; time each with CUDA events beside
+     its bound and, for K5-K7, one PyTorch call (K7: SDPA);
   4. train SplitFedv3 (``sflv3_ac``) on DenseNet-121-mini at 32^2 on the
      card and on the CPU from the same start, and hold the card's losses
      and scores against the CPU's plain path over an identity link (the
      int8 link's difference is printed); then the same privately (DP-SGD
-     with noise 0 and C = 1: deterministic), losses within 1e-4; and run
-     SmolLM's and Mamba2's SMOKE configs in f32 on the card and the CPU
-     (scoring logits, loss, greedy tokens);
+     with noise 0 and C = 1: deterministic), losses within 1e-4; then 2
+     steps of centralized, FL, SL-AC/AM, SFLv2 and SFLv1 (LS and NLS) on
+     DenseNet-mini and of SL-AM and SFLv3 (LS and NLS) on the U-Net-mini
+     under the same bars; and run SmolLM's and Mamba2's SMOKE configs in
+     f32 on the card and the CPU (scoring logits, loss, greedy tokens);
   5. the main path: SplitFedv3 on DenseNet-121 at 224^2, 5 synthetic
      hospitals, batch 16 per hospital, over ``Transport("int8")`` fused
      (K3) and unfused (K1, K2), then ``val_loss`` and
@@ -47,13 +52,23 @@ Phases, in order; any failure exits nonzero before the last line:
      the int8 cut link at layer 4 (K3 once more), each against the same
      call with use_pallas=False; then ``greedy_generate`` 32 tokens after
      4 prompts of 256 over the caches (no kernel), tokens per second;
-  8. print one JSON line ``{"kernels": [...]}`` (K1-K8), then the last
+  8. the paper's Table-2 grid at full width: every method on DenseNet-121
+     at 224^2 (5 hospitals x 2 batches of 16; LS, and NLS for SL-AM,
+     SFLv2 and SFLv3), then SFLv3 and SL-AM on the paper's U-Net at 768^2
+     (5 hospitals x 2 batches of 2; LS and NLS), the split family over the
+     fused int8 link: per run the step seconds, step-1 losses, K1-K3
+     launches (K3 exactly once per boundary leaf, crossing and step), K3's
+     output at every leaf of the first step bit-equal to its plain
+     version on the same rows, the transport's bytes (exactly ``comm_per_epoch``'s train legs), the
+     client sync (SFLv2/v1 one tree, SL/SFLv3 distinct) and ``evaluate``;
+  9. print one JSON line ``{"kernels": [...]}`` (K1-K8), then the last
      line ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds one profiled fused step of each main path and one
-profiled scoring forward of each LM (``torch.profiler``) and prints the
-device time by kernel.  The script imports nothing of JAX or of the
-JAX package ``repro``.
+Each phase prints its wall time.  ``--profile`` adds one profiled fused
+step of each main path, of the U-Net's SFLv3 and SL-AM (LS) in phase 8,
+and one profiled scoring forward of each LM (``torch.profiler``) and
+prints the device time by kernel.  The script imports nothing of JAX or
+of the JAX package ``repro``.
 """
 
 from __future__ import annotations
@@ -71,6 +86,12 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12              # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12            # bf16 tensor cores, dense
 MAIN_ROWS, MAIN_D = 80 * 56 * 56, 160   # the cut tensor of 5 x 16 images
+# the U-Net's widest boundary leaf in phase 8: the 768^2 x 64 skip of 5
+# hospitals x 2 images
+UNET_SIZE, UNET_BATCH = 768, 2
+UNET_ROWS, UNET_D = 5 * UNET_BATCH * UNET_SIZE ** 2, 64
+# K3 past 2^31 elements (bf16, 4.3 GB): row * D overflows 32 bits
+WIDE_ROWS = 2 ** 31 // UNET_D + 8
 # operations per element of each kernel: K1 abs, max, divide, round, clamp;
 # K2 convert, multiply; K3 both; K4 K3's and the noise multiply and add;
 # K5 multiply, add; K6 multiply, add
@@ -220,8 +241,72 @@ def check_kernels(dev):
                                plain, None, f"{t} x {MAIN_D} f32",
                                bound(key, t, MAIN_D, nin, nout), err[key])
     del x, z, w, q, s
+    table["K3"]["unet_leaf"] = check_k3_unet_leaf(dev, gen)
+    check_k3_past_2_31(dev, gen)
     table.update(check_dp_clip(dev, gen))
     return table
+
+
+def k3_equals_plain(x, out) -> bool:
+    """K3's output ``out`` of the rows ``x`` (any shape, rows along the
+    last axis) bit-equal to the plain version, taken over 2^26 elements of
+    rows at a time (the roundtrip is row-wise, so the cut is exact)."""
+    import torch
+    from repro_torch.kernels.act_compress import ref as R
+
+    d = x.shape[-1]
+    a, b = x.detach().reshape(-1, d), out.detach().reshape(-1, d)
+    step = max(1, 2 ** 26 // d)
+    return all(torch.equal(b[i:i + step], R.roundtrip_ref(a[i:i + step]))
+               for i in range(0, len(a), step))
+
+
+def check_k3_unet_leaf(dev, gen):
+    """K3 at the U-Net's widest boundary leaf (UNET_ROWS x 64 f32, 1.5 GB,
+    below 2^31 bytes; each lane of a row's warp holds two elements):
+    bit-equal to its plain version, then timed like the rows above."""
+    import torch
+    from repro_torch.kernels.act_compress import ref as R
+    from repro_torch.kernels.cut_fuse import cut_fuse as CF
+
+    x = torch.randn((UNET_ROWS, UNET_D), device=dev, generator=gen) * 3
+    rt, rt_r = CF.roundtrip_rows(x), R.roundtrip_ref(x)
+    torch.cuda.synchronize()
+    ok = torch.equal(rt, rt_r)
+    err = max_err(rt, rt_r)
+    log(f"  ({UNET_ROWS}, {UNET_D}) f32: K3 {ok}")
+    if not ok:
+        fail("K3 disagrees with its plain version at the U-Net's leaf")
+    del rt, rt_r
+    n = x.numel()
+    row = timed_row("K3", "cut_roundtrip", "cut_layer.cu",
+                    "src/repro/kernels/cut_fuse/cut_fuse.py:80",
+                    lambda: CF.roundtrip_rows(x), lambda: R.roundtrip_ref(x),
+                    None, f"{UNET_ROWS} x {UNET_D} f32 (the U-Net's widest "
+                    "leaf)", bound("K3", UNET_ROWS, UNET_D, 4 * n, 4 * n),
+                    err)
+    del x
+    torch.cuda.empty_cache()
+    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "max_abs_err")} | {
+        "shape": [UNET_ROWS, UNET_D]}
+
+
+def check_k3_past_2_31(dev, gen):
+    """K3 on WIDE_ROWS x 64 bf16, 2^31 + 512 elements: the last rows start
+    past 2^31 elements, where a 32-bit row * D would wrap; bit-equal to
+    its plain version in every row (not timed)."""
+    import torch
+    from repro_torch.kernels.cut_fuse import cut_fuse as CF
+
+    x = torch.randn((WIDE_ROWS, UNET_D), device=dev, generator=gen,
+                    dtype=torch.bfloat16)
+    ok = k3_equals_plain(x, CF.roundtrip_rows(x))
+    log(f"  ({WIDE_ROWS}, {UNET_D}) bf16, {x.numel()} elements: K3 {ok}")
+    del x
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("K3 disagrees with its plain version past 2^31 elements")
 
 
 def timed_row(key, name, source, replaces, kern, plain, library, shape,
@@ -516,30 +601,32 @@ def check_lm_kernels(dev, gen):
 # phases 4 and 5: the SplitFedv3 slice
 # ---------------------------------------------------------------------------
 
-def sflv3(cfg, clients, batch, device, fuse, seed=0, step_seconds=None,
-          codec="int8", privacy=None, n_train=None):
-    """Build the slice as a user would and train one epoch (on the first
-    ``n_train`` train images of each hospital, all by default); with a
-    list ``step_seconds`` each step is timed on the host clock between two
-    device synchronisations.  ``privacy``: PrivacyConfig keywords."""
+def train(method, adapter, clients, batch, device, fuse=True, seed=0,
+          step_seconds=None, codec="int8", privacy=None, n_train=None,
+          transport=None):
+    """Build a method of the Table-2 grid as a user would and train one
+    epoch (on the first ``n_train`` train images of each hospital, all by
+    default), over ``Transport(codec)`` (``codec`` None: no transport, as
+    centralized and FL have no cut layer); with a list ``step_seconds``
+    each step is timed on the host clock between two device
+    synchronisations.  ``privacy``: PrivacyConfig keywords; ``transport``:
+    a Transport to use instead of ``Transport(codec)``."""
     import numpy as np
     import torch
 
     from repro_torch import optim as O
-    from repro_torch.core.partition import cnn_adapter
     from repro_torch.core.strategies import make_strategy
-    from repro_torch.models.cnn import build_densenet
     from repro_torch.privacy import PrivacyConfig
     from repro_torch.wire import Transport
 
-    adapter = cnn_adapter(build_densenet(cfg))
-    transport = Transport(codec, fuse=fuse, device=device)
+    if transport is None and codec is not None:
+        transport = Transport(codec, fuse=fuse, device=device)
     strat = make_strategy(
-        "sflv3_ac", adapter, lambda: O.adam(1e-4), len(clients),
+        method, adapter, lambda: O.adam(1e-4), len(clients),
         transport=transport, device=device,
         privacy=None if privacy is None else PrivacyConfig(**privacy))
     if step_seconds is not None:
-        step = strat._step3
+        step = strat._step
 
         def timed(*args):
             torch.cuda.synchronize()
@@ -548,12 +635,20 @@ def sflv3(cfg, clients, batch, device, fuse, seed=0, step_seconds=None,
             torch.cuda.synchronize()
             step_seconds.append(time.perf_counter() - t0)
             return out
-        strat._step3 = timed
+        strat._step = timed
     state = strat.setup(seed)
-    train = [{k: v[:n_train] for k, v in c.train.items()} for c in clients]
-    state, epoch = strat.run_epoch(state, train, np.random.default_rng(1),
+    data = [{k: v[:n_train] for k, v in c.train.items()} for c in clients]
+    state, epoch = strat.run_epoch(state, data, np.random.default_rng(1),
                                    batch)
     return strat, state, epoch, transport
+
+
+def sflv3(cfg, clients, batch, device, fuse, **kw):
+    """SplitFedv3 (``sflv3_ac``) on a DenseNet config, the LS cut."""
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.models.cnn import build_densenet
+    return train("sflv3_ac", cnn_adapter(build_densenet(cfg)), clients,
+                 batch, device, fuse, **kw)
 
 
 def small_against_cpu(dev):
@@ -614,6 +709,68 @@ def small_against_cpu(dev):
         held = dl if codec == "identity" else dl[:1]
         if not np.isfinite(out["cuda"]).all() or held.max() > 1e-4:
             fail("the card's private step disagrees with the CPU's")
+
+
+# the methods of the Table-2 grid held card against CPU in phase 4, beside
+# sflv3_ac above: (method, family, nls)
+GRID_SMALL = [("centralized", "densenet", False), ("fl", "densenet", False),
+              ("sl_ac", "densenet", False), ("sl_am", "densenet", False),
+              ("sflv2_ac", "densenet", False), ("sflv2_ac", "densenet", True),
+              ("sflv1_ac", "densenet", False), ("sflv1_ac", "densenet", True),
+              ("sl_am", "unet", False), ("sl_am", "unet", True),
+              ("sflv3_ac", "unet", False), ("sflv3_ac", "unet", True)]
+
+
+def small_adapter(family, nls):
+    from repro_torch.configs.paper_models import DENSENET_MINI, UNET_MINI
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.models.cnn import build_densenet, build_unet
+    if family == "densenet":
+        return cnn_adapter(build_densenet(DENSENET_MINI, nls=nls))
+    return cnn_adapter(build_unet(UNET_MINI, nls=nls))
+
+
+def grid_small_against_cpu(dev):
+    """2 steps of each method of ``GRID_SMALL`` at 32^2, 2 hospitals, batch
+    4, on the card and on the CPU from the same seed, under the bars of
+    ``small_against_cpu``: without a transport or over an identity link
+    every step's losses and the scores within 1e-4; over the int8 link
+    (fused) the first step's losses within 1e-4 and the rest printed."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_cxr_clients
+
+    clients = make_cxr_clients(seed=0, n_clients=2, train_per_client=8,
+                               val_per_client=6, test_per_client=6,
+                               image_size=32)
+    batch = 4
+    for method, family, nls in GRID_SMALL:
+        sync = method.startswith(("sflv3", "sflv1"))
+        n_train = 2 * batch if sync else batch      # 2 steps either way
+        codecs = ([None] if method in ("centralized", "fl")
+                  else ["identity", "int8"])
+        for codec in codecs:
+            out = {}
+            for device in ("cpu", dev):
+                strat, state, epoch, _ = train(
+                    method, small_adapter(family, nls), clients, batch,
+                    device, codec=codec, n_train=n_train)
+                out[torch_type(device)] = (
+                    np.asarray(epoch.losses).reshape(epoch.steps, -1),
+                    np.concatenate(strat.scores_all(
+                        state, [c.test for c in clients])))
+            dl = np.abs(out["cpu"][0] - out["cuda"][0]).max(axis=1)
+            ds = float(np.abs(out["cpu"][1] - out["cuda"][1]).max())
+            log(f"  {method} {family}-mini {'NLS' if nls else 'LS'} over "
+                f"{codec or 'no link'}: |loss card - cpu| by step "
+                f"{dl.tolist()}, |score card - cpu| {ds:.3g}")
+            if len(dl) != 2 or not np.isfinite(out["cuda"][0]).all():
+                fail(f"{method}: expected 2 finite steps on the card")
+            if codec != "int8" and not (dl.max() <= 1e-4 and ds <= 1e-4):
+                fail(f"the card's {method} run disagrees with the CPU's")
+            if dl[0] > 1e-4:
+                fail(f"the card's first-step losses of {method} over "
+                     f"{codec} disagree with the CPU's")
 
 
 def torch_type(device) -> str:
@@ -750,6 +907,152 @@ def private_path(dev, clients, profile):
     if profile:
         profile_step(strat, state, clients, BATCH, "private fused")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the Table-2 grid at full width
+# ---------------------------------------------------------------------------
+
+# (method, nls) of each family's runs; the split family over the int8 link
+DENSE_GRID = [(m, False) for m in ("centralized", "fl", "sl_ac", "sl_am",
+                                   "sflv2_ac", "sflv3_ac", "sflv1_ac")] + [
+    ("sl_am", True), ("sflv2_ac", True), ("sflv3_ac", True)]
+UNET_GRID = [("sflv3_ac", False), ("sflv3_ac", True), ("sl_am", False),
+             ("sl_am", True)]
+
+
+def grid_run(method, nls, adapter, clients, batch, dev, profile=False):
+    """One epoch of one grid row (2 batches per hospital) and its checks:
+    finite losses; K3 launched once per boundary leaf per crossing per
+    step (no launch without a link); the transport's bytes equal to
+    ``comm_per_epoch``'s train legs for the batches run; K3's output at
+    every boundary leaf of the first step (each crossing) bit-equal to its
+    plain version on the same rows (held inside that step, so its time
+    counts in step 1's seconds); SFLv2/v1 hospitals hold one client tree
+    after the epoch and SL/SFLv3 distinct ones; ``evaluate`` finite.
+    With ``profile``, one more step runs under the profiler.  Returns the
+    run's K1-K3 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.comm import comm_per_epoch
+    from repro_torch.tree import tree_leaves
+    from repro_torch.wire import Transport
+
+    kernels = {k: v for k, v in path_kernels().items()
+               if k in ("K1", "K2", "K3")}
+    split = method not in ("centralized", "fl")
+    example = {k: v[:batch] for k, v in clients[0].train.items()}
+    specs = adapter.boundary_specs(example)
+    leaves = sum(len(tree_leaves(t)) for t in specs.values())
+    tr = Transport("int8", device=dev) if split else None
+    held = held_leaves(tr, leaves) if split else []
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: k.launches for n, k in kernels.items()}
+    step_s = []
+    strat, state, epoch, tr = train(method, adapter, clients, batch, dev,
+                                    codec=None, transport=tr,
+                                    n_train=2 * batch, step_seconds=step_s)
+    counts = {n: k.launches - before[n] for n, k in kernels.items()}
+    label = f"{method} {'NLS' if nls else 'LS'}"
+    per_step = len(epoch.losses) // epoch.steps
+    log(f"  {label}: {epoch.steps} steps, step seconds "
+        f"{[round(x, 4) for x in step_s]}, step-1 losses "
+        f"{epoch.losses[:per_step]}")
+    log(f"    launches {' '.join(f'{n} {c}' for n, c in counts.items())}; "
+        f"transport {json.dumps(tr.summary() if split else None)}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not np.isfinite(epoch.losses).all():
+        fail(f"{label}: non-finite losses")
+    if split:
+        log(f"    K3 == plain at step 1's leaves: "
+            f"{' '.join(f'{tuple(s)} {ok}' for s, ok in held)}")
+        if len(held) != leaves or not all(ok for _, ok in held):
+            fail(f"{label}: K3 disagrees with its plain version at a "
+                 "boundary leaf of the first step, or a leaf went unheld")
+    want = {"K1": 0, "K2": 0, "K3": leaves * epoch.steps if split else 0}
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {want}")
+    if split:
+        comm = comm_per_epoch(method, adapter, example,
+                              [2 * batch] * len(clients),
+                              [len(c.val["label"]) for c in clients], batch,
+                              codec=tr.codec)
+        legs = sum(v for k, v in comm.breakdown.items()
+                   if k.startswith("train_"))
+        if tr.bytes_on_wire != legs:
+            fail(f"{label}: {tr.bytes_on_wire} bytes on the wire, "
+                 f"comm_per_epoch's train legs {legs}")
+        trees = [tree_leaves(c) for c in state["clients"]]
+        same = [all(torch.equal(a, b) for a, b in zip(t, trees[0]))
+                for t in trees[1:]]
+        if method.startswith(("sflv2", "sflv1")) and not all(same):
+            fail(f"{label}: the hospitals' client trees differ after the "
+                 "epoch's sync")
+        if method.startswith(("sl_", "sflv3")) and any(same):
+            fail(f"{label}: two hospitals hold the same client tree")
+    evaluate(strat, state, clients)
+    if profile:
+        profile_step(strat, state, clients, batch,
+                     f"{label} at {UNET_SIZE}^2, one batch per hospital,")
+    return counts
+
+
+def held_leaves(transport, n):
+    """Hold K3's output at the first ``n`` leaves ``transport`` sends (the
+    first step's boundary leaves, every crossing) against its plain version
+    on the same rows; the output the step uses is the one held, so this
+    launches nothing.  Returns the list of (shape, equal) it fills."""
+    codec, held = transport.codec, []
+    fused = codec.fused_roundtrip
+
+    def checked(x):
+        out = fused(x)
+        if len(held) < n:
+            held.append((tuple(x.shape), k3_equals_plain(x, out)))
+        return out
+    codec.fused_roundtrip = checked
+    return held
+
+
+def grid_path(dev, clients, profile=False):
+    """Phase 8: every method of the grid on DenseNet-121 at 224^2 (5
+    hospitals x 2 batches of 16, LS, and NLS for sl_am, sflv2_ac and
+    sflv3_ac), then sflv3_ac and sl_am on the paper's U-Net at 768^2 (5
+    hospitals x 2 batches of UNET_BATCH, LS and NLS).  Returns the K1-K3
+    launches of the phase.  ``profile`` profiles one more step of the
+    U-Net's sflv3_ac and sl_am, LS."""
+    import torch
+
+    from repro_torch.configs.paper_models import DENSENET121_PAPER, UNET_PAPER
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.data.synthetic import make_cxr_clients
+    from repro_torch.models.cnn import build_densenet, build_unet
+
+    reset_launches()
+    total = {"K1": 0, "K2": 0, "K3": 0}
+    for method, nls in DENSE_GRID:
+        counts = grid_run(method, nls, cnn_adapter(build_densenet(
+            DENSENET121_PAPER, nls=nls)), clients, BATCH, dev)
+        total = {k: total[k] + counts[k] for k in total}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    unet_clients = make_cxr_clients(
+        seed=0, n_clients=5, train_per_client=2 * UNET_BATCH,
+        val_per_client=UNET_BATCH, test_per_client=UNET_BATCH,
+        image_size=UNET_SIZE)
+    log(f"  data: 5 hospitals x {2 * UNET_BATCH} train images at "
+        f"{UNET_SIZE}^2 ({time.perf_counter() - t0:.1f} s)")
+    for method, nls in UNET_GRID:
+        counts = grid_run(method, nls, cnn_adapter(build_unet(
+            UNET_PAPER, nls=nls)), unet_clients, UNET_BATCH, dev,
+            profile and not nls)
+        total = {k: total[k] + counts[k] for k in total}
+        torch.cuda.empty_cache()
+    log(f"  launches in phase 8: {total}")
+    if not total["K3"]:
+        fail("K3 never launched on the grid")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1011,7 +1314,8 @@ LM_KERNEL_GROUPS = (
 
 
 def profile_step(strat, state, clients, batch, label):
-    """Device time of one more SplitFedv3 step (after a warm one)."""
+    """Device time of one more epoch of one batch per hospital, after a
+    warm one: one step of SFLv3, one step per hospital of SL."""
     import numpy as np
 
     data = [{k: v[:batch] for k, v in c.train.items()} for c in clients]
@@ -1078,38 +1382,56 @@ def main():
         fail(f"the port is not beside this script ({e})")
     dev = torch.device("cuda", 0)
 
-    log("phase 1: card")
+    clock = [time.perf_counter()]
+
+    def phase(title):
+        """Print the wall time of the phase that ends, then the title of
+        the next (None: the last has ended)."""
+        now = time.perf_counter()
+        if len(clock) > 1:
+            log(f"  ({now - clock[-1]:.1f} s)")
+        clock.append(now)
+        if title:
+            log(title)
+
+    phase("phase 1: card")
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    log("phase 2: build")
-    t0 = time.perf_counter()
+    phase("phase 2: build")
     libs = build.build()
-    log(f"  built {[p.name for p in libs]} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  built {[p.name for p in libs]}")
 
-    log("phase 3: kernels against their plain versions")
+    phase("phase 3: kernels against their plain versions")
     table = check_kernels(dev)
     table.update(check_lm_kernels(dev, torch.Generator(device=dev)
                                   .manual_seed(1)))
 
-    log("phase 4: the slices at small size, card against CPU")
+    phase("phase 4: the slices at small size, card against CPU")
     small_against_cpu(dev)
+    grid_small_against_cpu(dev)
     lm_small_against_cpu(dev)
 
-    log("phase 5: the main path, DenseNet-121 at 224^2")
+    phase("phase 5: the main path, DenseNet-121 at 224^2")
     clients = main_data(args.steps)
     launches = main_path(dev, clients, args.profile)
 
-    log("phase 6: the private main path, DenseNet-121 at 224^2")
+    phase("phase 6: the private main path, DenseNet-121 at 224^2")
     launches.update(private_path(dev, clients, args.profile))
-    del clients
 
-    log("phase 7: LM serving, SmolLM-135M and Mamba2-130M")
+    phase("phase 7: LM serving, SmolLM-135M and Mamba2-130M")
     launches.update(lm_path(dev, args.profile))
+
+    phase("phase 8: the Table-2 grid, DenseNet-121 at 224^2 and the U-Net "
+          f"at {UNET_SIZE}^2")
+    for key, n in grid_path(dev, clients, args.profile).items():
+        launches[key] += n
+    del clients
     for key, n in launches.items():
         table[key]["launches"] = n
+    phase(None)
+    log(f"  all phases: {clock[-1] - clock[0]:.1f} s")
 
     log(card)
     log(json.dumps({"kernels": list(table.values())}))

@@ -3,11 +3,12 @@
 ``jax.eval_shape``.
 
 One epoch = training over all train batches + validation over all val
-batches.  Per train batch the cut-layer traffic is activations up +
-activation-gradients down; validation moves activations only (the
-reference's U-shaped legs ``act_mt`` are 0 here: that split is ROADMAP
-M5).  FL moves 2 x model bytes per
-client per round; SFLv2/v1 also ship the client segment both ways for
+batches.  Per train batch the cut-layer traffic is:
+  LS : activations up + activation-gradients down           (front<->middle)
+  NLS: + hidden down + hidden-gradients up                  (middle<->tail)
+Validation moves activations only.  Breakdown keys name the transfer's
+physical direction (client->server = up).  FL moves 2 x model bytes per
+client per round; SFLv2/v1 also ship the client segment(s) both ways for
 averaging.  A ``codec`` shrinks the activation legs only.
 """
 
@@ -53,13 +54,15 @@ def leg_sizes(adapter: SplitAdapter, example_batch: dict, params=None,
         return int(sum(codec.wire_bytes(l) for l in tree_leaves(tree)))
 
     fm = specs["front->middle"]
+    mt = specs.get("middle->tail", ())
     return {
         "model": leaf_bytes(params),
-        "client_seg": leaf_bytes(params["front"]),
+        "client_seg": leaf_bytes(params["front"]) + leaf_bytes(
+            params.get("tail", {})),
         "act_fm": wire(fm),
         "act_fm_raw": leaf_bytes(fm),
-        "act_mt": 0,
-        "act_mt_raw": 0,
+        "act_mt": wire(mt),
+        "act_mt_raw": leaf_bytes(mt),
     }
 
 
@@ -70,7 +73,7 @@ def comm_per_epoch(method: str, adapter: SplitAdapter, example_batch: dict,
     legs = leg_sizes(adapter, example_batch, codec=codec)
     tr_counts, va_counts = client_batch_counts(n_train, n_val, batch_size)
     train_batches, val_batches = sum(tr_counts), sum(va_counts)
-    act_fm = legs["act_fm"]
+    act_fm, act_mt = legs["act_fm"], legs["act_mt"]
 
     bd = {}
     if method == "centralized":
@@ -83,6 +86,10 @@ def comm_per_epoch(method: str, adapter: SplitAdapter, example_batch: dict,
         bd["train_act_up"] = act_fm * train_batches
         bd["train_grad_down"] = act_fm * train_batches
         bd["val_act_up"] = act_fm * val_batches
+        if adapter.nls:
+            bd["train_hidden_down"] = act_mt * train_batches
+            bd["train_hidden_grad_up"] = act_mt * train_batches
+            bd["val_hidden_down"] = act_mt * val_batches
         if method.startswith("sflv2") or method.startswith("sflv1"):
             bd["client_seg_avg"] = 2 * legs["client_seg"] * len(n_train)
         total = sum(bd.values())

@@ -5,10 +5,11 @@ architecture-agnostic.  Segments:
 
   * ``front``  — at the client; raw inputs never leave it.
   * ``middle`` — at the server (the bulk of the compute).
+  * ``tail``   — at the client again, only in the non-label-sharing
+    (U-shaped) configuration; holds the head so labels never leave either.
 
-The reference's ``tail`` (the U-shaped, non-label-sharing split) is not
-ported yet (ROADMAP M5).
-
+Activations crossing segment boundaries may be pytrees (the U-Net front
+emits (hidden, skips)); communication accounting sums leaf bytes.
 Boundary shapes are computed on the ``meta`` device: no memory, no compute.
 """
 
@@ -29,22 +30,29 @@ META = torch.device("meta")
 class SplitAdapter:
     """Uniform three-segment view of a model for the distributed strategies."""
     name: str
-    seg_names: tuple[str, ...]                 # ("front", "middle")
+    seg_names: tuple[str, ...]                 # ("front", "middle"[, "tail"])
     init: Callable[..., Any]                   # (generator, device) -> params
     inputs: Callable[[dict], Any]              # batch -> x0
     apply_seg: Callable[..., Any]              # (seg, seg_params, x, batch, train) -> x
     loss_from_output: Callable[[Any, dict], Any]
     scores_from_output: Callable[[Any], Any]   # output -> probabilities
+    per_example_loss: Callable[[Any, dict], Any]   # output -> (B,)
     batch_keys: tuple[str, ...] = ()           # what a step reads of a batch
 
+    @property
+    def nls(self) -> bool:
+        return "tail" in self.seg_names
+
     def full_loss(self, params, batch, train=True, boundary=None):
-        """``boundary``: optional fn applied to the cut-layer activation
-        (the ``repro_torch.wire`` transport hook)."""
-        x = self.apply_seg("front", params["front"], self.inputs(batch),
-                           batch, train)
-        if boundary is not None:
-            x = boundary(x)
-        x = self.apply_seg("middle", params["middle"], x, batch, train)
+        """``boundary``: optional fn applied to every cross-segment
+        activation tree (the ``repro_torch.wire`` transport hook: the next
+        segment sees what crossed the wire)."""
+        x = self.inputs(batch)
+        last = len(self.seg_names) - 1
+        for i, seg in enumerate(self.seg_names):
+            x = self.apply_seg(seg, params[seg], x, batch, train)
+            if boundary is not None and i < last:
+                x = boundary(x)
         return self.loss_from_output(x, batch)
 
     def full_scores(self, params, batch):
@@ -56,14 +64,18 @@ class SplitAdapter:
     # -- boundary shape accounting (for repro_torch.core.comm) --------------
     def boundary_specs(self, example_batch: dict, params=None) -> dict:
         """Meta tensors with the shape and dtype of every segment-boundary
-        activation (NHWC, as in the reference)."""
+        activation tree (NHWC, as in the reference)."""
         if params is None:
             params = self.init(None, META)
         b = {k: as_meta(v) for k, v in example_batch.items()}
         with torch.no_grad():
             h = self.apply_seg("front", params["front"], self.inputs(b), b,
                                True)
-        return {"front->middle": h}
+            specs = {"front->middle": h}
+            if self.nls:
+                specs["middle->tail"] = self.apply_seg(
+                    "middle", params["middle"], h, b, True)
+        return specs
 
 
 def as_meta(v) -> torch.Tensor:
@@ -77,7 +89,7 @@ def as_meta(v) -> torch.Tensor:
 
 def cnn_adapter(model) -> SplitAdapter:
     """Wrap a ``repro_torch.models.cnn.CNNModel``."""
-    from repro_torch.models.cnn import bce_loss
+    from repro_torch.models.cnn import bce_loss, bce_terms
 
     def inputs(batch):
         return batch["image"]
@@ -91,9 +103,13 @@ def cnn_adapter(model) -> SplitAdapter:
     def scores_from_output(out):
         return torch.sigmoid(out.reshape(-1).float())
 
+    def per_example_loss(out, batch):
+        return bce_terms(out, batch["label"])
+
     return SplitAdapter(model.name, tuple(model.seg_names), model.init_params,
                         inputs, apply_seg, loss_from_output,
-                        scores_from_output, batch_keys=("image", "label"))
+                        scores_from_output, per_example_loss,
+                        batch_keys=("image", "label"))
 
 
 def leaf_bytes(tree) -> int:

@@ -1,33 +1,47 @@
-"""Strategy registry — counterpart of ``repro.core.strategies``.
+"""Strategy registry: the method grid of the paper's Table 2 —
+counterpart of ``repro.core.strategies`` on the stepwise engine.
 
-The port has SplitFedv3 (``sflv3_ac`` / ``sflv3_am``) on the stepwise
-engine, private or not; every other method and option raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Every method of ``METHODS`` is built, in the label-sharing (LS) and the
+U-shaped (NLS) cut.  Privacy runs on SFLv3 and on SFLv1 with the LS cut;
+every option still unported raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 
 from repro_torch.core.strategies.base import EpochLog, Strategy
+from repro_torch.core.strategies.centralized import Centralized
+from repro_torch.core.strategies.federated import FedAvg
 from repro_torch.core.strategies.split import SplitLearning
-from repro_torch.core.strategies.splitfed import SplitFedV3
+from repro_torch.core.strategies.splitfed import (SplitFedV1, SplitFedV2,
+                                                  SplitFedV3)
 from repro_torch.device import resolve_device, use_full_fp32
 
 METHODS = ["centralized", "fl", "sl_ac", "sl_am",
            "sflv2_ac", "sflv3_ac", "sflv1_ac"]
 
+_SPLIT = {"sl": SplitLearning, "sflv1": SplitFedV1, "sflv2": SplitFedV2,
+          "sflv3": SplitFedV3}
+
 
 def make_strategy(method: str, adapter, opt_factory, n_clients,
                   transport=None, privacy=None, engine="stepwise",
-                  shard=False, observe=None,
+                  drop_remainder=True, shard=False, observe=None,
                   precision="fp32", participation=None, aggregator=None,
                   device=None):
-    """method: ``sflv3_{ac,am}`` so far.  ``privacy``: a
-    ``repro_torch.privacy.PrivacyConfig`` (DP-SGD and/or cut-layer noise).
+    """method: centralized | fl | sl_{ac,am} | sflv{1,2,3}_{ac,am}.
+
+    ``transport`` (``repro_torch.wire.Transport``) compresses the cut-layer
+    link of the SL/SFL family; centralized and FL have no cut layer.  It
+    must live on the strategy's device.  ``privacy`` (a
+    ``repro_torch.privacy.PrivacyConfig``: DP-SGD and/or cut-layer noise)
+    runs on ``sflv3_*`` and, with the LS cut, ``sflv1_*``.
+    ``drop_remainder=False`` keeps each hospital's final short batch (SL,
+    SFLv2, FL, centralized; SFLv3/v1 refuse it).
 
     ``device`` None means the CUDA card (raises without one); pass
-    ``device="cpu"`` to run the plain PyTorch path on the CPU.  A
-    ``transport`` (``repro_torch.wire.Transport``) must live on the same
-    device.  ``precision="fp32"`` is full float32: on the card it turns
-    cuDNN's TF32 convolutions off (``device.use_full_fp32``).  The default
-    engine is ``"stepwise"``, the only one ported.
+    ``device="cpu"`` to run the plain PyTorch path on the CPU.
+    ``precision="fp32"`` is full float32: on the card it turns cuDNN's
+    TF32 convolutions off (``device.use_full_fp32``).  The default engine
+    is ``"stepwise"``, the only one ported.
     """
     unported = [
         (observe is not None, "observe=", "M10 (observability)"),
@@ -43,25 +57,42 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
     if precision != "fp32":
         raise ValueError(f"unknown precision {precision!r}")
     kind, _, schedule = method.rpartition("_")
-    split_family = schedule in ("ac", "am")
-    if method in ("centralized", "fl") or (
-            split_family and kind in ("sl", "sflv1", "sflv2")):
-        raise NotImplementedError(f"method {method!r} is not ported yet: "
-                                  "ROADMAP M5 (strategies)")
-    if kind != "sflv3" or not split_family:
-        raise ValueError(f"unknown method {method!r}")
-    if privacy is not None and privacy.secagg:
-        raise ValueError("secure aggregation applies to FL model uploads; "
-                         f"{method} ships activations, not updates")
+    if method in ("centralized", "fl"):
+        if transport is not None:
+            raise ValueError(f"{method} has no cut-layer link for a "
+                             "transport codec")
+        if privacy is not None and privacy.cut_noise_std > 0:
+            raise ValueError(f"{method} has no cut layer to noise")
+        if privacy is not None and privacy.secagg and method != "fl":
+            raise ValueError("secure aggregation needs federated uploads")
+    else:
+        if privacy is not None and privacy.secagg:
+            raise ValueError("secure aggregation applies to FL model "
+                             f"uploads; {method} ships activations, not "
+                             "updates")
+        if kind not in _SPLIT or schedule not in ("ac", "am"):
+            raise ValueError(f"unknown method {method!r}")
+    if privacy is not None and kind not in ("sflv3", "sflv1"):
+        raise NotImplementedError(f"privacy on {method} is not ported yet: "
+                                  "ROADMAP M8 (privacy on the grid)")
+    if privacy is not None and adapter.nls:
+        raise NotImplementedError("privacy with nls=True is not ported "
+                                  "yet: ROADMAP M8 (privacy on the grid)")
     device = resolve_device(device)
     if transport is not None and transport.device != device:
         raise ValueError(f"transport on {transport.device}, strategy on "
                          f"{device}")
     use_full_fp32(device)
-    return SplitFedV3(adapter, opt_factory, n_clients, schedule,
-                      transport=transport, privacy=privacy, device=device,
-                      engine=engine)
+    kw = dict(privacy=privacy, engine=engine, drop_remainder=drop_remainder,
+              device=device)
+    if method == "centralized":
+        return Centralized(adapter, opt_factory, n_clients, **kw)
+    if method == "fl":
+        return FedAvg(adapter, opt_factory, n_clients, **kw)
+    return _SPLIT[kind](adapter, opt_factory, n_clients, schedule,
+                        transport=transport, **kw)
 
 
-__all__ = ["Strategy", "EpochLog", "SplitLearning", "SplitFedV3",
-           "make_strategy", "METHODS"]
+__all__ = ["Strategy", "EpochLog", "Centralized", "FedAvg", "SplitLearning",
+           "SplitFedV1", "SplitFedV2", "SplitFedV3", "make_strategy",
+           "METHODS"]

@@ -1,5 +1,7 @@
-"""Strategy API + the SplitFedv3 step — counterpart of
-``repro/core/strategies/base.py`` (stepwise engine).
+"""Strategy API + the step functions — counterpart of
+``repro/core/strategies/base.py`` (stepwise engine): ``full_step_fn``
+(centralized, FL), ``split_step_fn`` (SL, SFLv2) and ``sflv3_step_fn``
+(SFLv3, SFLv1).
 
 Every strategy consumes a ``SplitAdapter`` and an optimizer factory and
 exposes ``setup(seed) -> state``, ``run_epoch(state, client_data, rng,
@@ -46,15 +48,18 @@ class EpochLog:
         return float((l * w).sum() / max(w.sum(), 1.0))
 
 
-def np_batches(data: dict, batch_size: int, rng: np.random.Generator | None):
-    """Shuffle + slice a client's epoch into full batch dicts, the short
-    remainder dropped (the reference's numpy stream with its default
-    ``drop_remainder=True``: the same rng gives the same batches)."""
+def np_batches(data: dict, batch_size: int, rng: np.random.Generator | None,
+               drop_remainder: bool = True):
+    """Shuffle + slice a client's epoch into batch dicts (the reference's
+    numpy stream: the same rng gives the same batches).
+    ``drop_remainder=True`` drops the final ``n % batch_size`` samples, as
+    the paper's testbed does; ``False`` keeps them as one short final
+    batch."""
     n = len(next(iter(data.values())))
     idx = np.arange(n)
     if rng is not None:
         rng.shuffle(idx)
-    stop = (n // batch_size) * batch_size
+    stop = (n // batch_size) * batch_size if drop_remainder else n
     return [{k: v[idx[s:s + batch_size]] for k, v in data.items()}
             for s in range(0, stop, batch_size)]
 
@@ -64,7 +69,7 @@ class Strategy:
 
     def __init__(self, adapter: SplitAdapter, opt_factory: Callable[[], Optimizer],
                  n_clients: int, device: torch.device, privacy=None,
-                 engine: str = "stepwise"):
+                 engine: str = "stepwise", drop_remainder: bool = True):
         if engine != "stepwise":
             raise NotImplementedError(
                 f"engine={engine!r}: the port has the stepwise engine only "
@@ -75,6 +80,7 @@ class Strategy:
         self.device = device
         self.privacy = privacy      # repro_torch.privacy.PrivacyConfig | None
         self.engine = engine
+        self.drop_remainder = drop_remainder
         self._accountants = None
         self._key_step = 0
 
@@ -88,6 +94,21 @@ class Strategy:
     def params_for_eval(self, state, client_idx) -> dict:
         """Full param dict (all segments) used to score client ``client_idx``."""
         raise NotImplementedError
+
+    def run(self, state, client_data, rng, batch_size, n_epochs,
+            observe=None):
+        """Train ``n_epochs`` epochs (rounds); returns ``(state, logs)``,
+        one ``EpochLog`` per epoch.  The stepwise engine runs the epochs one
+        after another; the compiled engine's single whole-run program is
+        ROADMAP M6."""
+        if observe is not None:
+            raise NotImplementedError("observe= is not ported yet: ROADMAP "
+                                      "M10 (observability)")
+        logs = []
+        for _ in range(n_epochs):
+            state, log = self.run_epoch(state, client_data, rng, batch_size)
+            logs.append(log)
+        return state, logs
 
     # -- privacy plumbing -----------------------------------------------------
     @property
@@ -177,8 +198,64 @@ class Strategy:
 
 
 # ---------------------------------------------------------------------------
-# the SplitFedv3 step
+# step functions
 # ---------------------------------------------------------------------------
+
+def _grad_trees(loss, *trees):
+    """d loss / d every leaf of each tree, as trees of the same shape."""
+    leaves = [tree_leaves(t) for t in trees]
+    grads = iter(torch.autograd.grad(loss, [l for ls in leaves for l in ls]))
+    return [tree_map(lambda _: next(grads), t) for t in trees]
+
+
+def _client_params(adapter, cp, sp):
+    """A hospital's client tree (front, and tail under NLS) and the server
+    segment as one param dict."""
+    params = {"front": cp["front"], "middle": sp}
+    if adapter.nls:
+        params["tail"] = cp["tail"]
+    return params
+
+
+def full_step_fn(adapter: SplitAdapter, opt: Optimizer):
+    """Step over ALL segments jointly (centralized, FL local training):
+    ``step(params, opt_state, batch) -> (params, opt_state, loss)``, the
+    loss detached."""
+    def step(params, opt_state, batch):
+        p = detached(params, True)
+        loss = adapter.full_loss(p, batch)
+        g, = _grad_trees(loss, p)
+        updates, opt_state = opt.update(g, opt_state)
+        return apply_updates(params, updates), opt_state, loss.detach()
+    return step
+
+
+def split_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
+                  opt_server: Optimizer, transport=None):
+    """SL/SFLv2 step: the joint gradient through one hospital's client
+    segment(s) and the server (numerically the paper's two-hop backprop;
+    the hops are the transfers ``core.comm`` accounts).  With a
+    ``transport`` every crossing goes through its codec, so the next
+    segment trains on what crossed the wire.
+
+    ``step(client_params, server_params, c_opt, s_opt, batch)`` returns the
+    updated ``(client_params, server_params, c_opt, s_opt, loss)``.
+    """
+    boundary = transport.boundary if transport is not None else None
+
+    def step(client_params, server_params, c_opt, s_opt, batch):
+        cp = detached(client_params, True)
+        sp = detached(server_params, True)
+        loss = adapter.full_loss(_client_params(adapter, cp, sp), batch,
+                                 boundary=boundary)
+        gc, gs = _grad_trees(loss, cp, sp)
+        cu, c_opt = opt_client.update(gc, c_opt)
+        su, s_opt = opt_server.update(gs, s_opt)
+        return (apply_updates(client_params, cu),
+                apply_updates(server_params, su), c_opt, s_opt,
+                loss.detach())
+    return step
+
 
 def _cat(trees):
     return tree_map(lambda *ls: torch.cat(ls), trees[0], *trees[1:])
@@ -209,8 +286,11 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     hospital's noise is drawn from its own stream and the fused int8 link
     is one K4 launch) and the shared server segment runs once on all
     hospitals' rows (GroupNorm and convs are per example, so this equals
-    one server pass per hospital).  The loss is the mean over hospitals of
-    each hospital's mean loss: its gradient gives the server the mean of
+    one server pass per hospital).  Under NLS the server's output crosses
+    back the same way, one launch per leaf for all hospitals, and each
+    hospital's rows go through its own tail.  The loss is the mean over
+    hospitals of each hospital's mean loss: its gradient gives the server
+    the mean of
     the per-hospital server gradients, and each client gradient is
     rescaled by ``n_clients`` back to that hospital's own, exactly as the
     reference does.
@@ -256,23 +336,24 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
         elif boundary is not None:
             h = boundary(h)
         h = adapter.apply_seg("middle", sp, h, joint, True)
+        if adapter.nls:
+            if boundary is not None:
+                h = boundary(h)
+            outs = [adapter.apply_seg("tail", cp["tail"], o, b, True)
+                    for cp, o, b in zip(cps, _split(h, sizes), batches)]
+        else:
+            outs = _split(h, sizes)
         losses = torch.stack([adapter.loss_from_output(o, b)
-                              for o, b in zip(_split(h, sizes), batches)])
-        c_leaves = [tree_leaves(cp) for cp in cps]
-        s_leaves = tree_leaves(sp)
-        grads = torch.autograd.grad(losses.sum() / n_clients,
-                                    [l for ls in c_leaves for l in ls]
-                                    + s_leaves)
-        grads = iter(grads)
-        gcs = [tree_map(lambda _: next(grads) * n_clients, cp) for cp in cps]
-        gs = tree_map(lambda _: next(grads), sp)
+                              for o, b in zip(outs, batches)])
+        *gcs, gs = _grad_trees(losses.sum() / n_clients, *cps, sp)
+        gcs = [tree_map(lambda g: g * n_clients, gc) for gc in gcs]
         return update(clients, server, c_opts, s_opt, gcs, gs, losses)
 
     if privacy is None or not privacy.dp_enabled:
         return step_fn
 
     def loss_fn(both, b, z):
-        params = {"front": both["c"]["front"], "middle": both["s"]}
+        params = _client_params(adapter, both["c"], both["s"])
         return adapter.full_loss(
             params, b, boundary=boundary if z is None
             else lambda h: noised(h, z))
@@ -300,4 +381,5 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     return dp_step
 
 
-__all__ = ["Strategy", "EpochLog", "np_batches", "sflv3_step_fn"]
+__all__ = ["Strategy", "EpochLog", "np_batches", "full_step_fn",
+           "split_step_fn", "sflv3_step_fn"]

@@ -1,0 +1,42 @@
+"""Centralized training — the paper's benchmark upper bound (§3.6);
+counterpart of ``repro/core/strategies/centralized.py`` (stepwise engine).
+The hospitals' data is pooled and shuffled once per epoch."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.strategies.base import (EpochLog, Strategy,
+                                              full_step_fn, np_batches)
+
+
+class Centralized(Strategy):
+    name = "centralized"
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._opt = self.opt_factory()
+        self._step = full_step_fn(self.adapter, self._opt)
+
+    def setup(self, seed=0):
+        """One model from ``torch.Generator(seed)`` on the CPU."""
+        params = self.adapter.init(torch.Generator().manual_seed(int(seed)),
+                                   self.device)
+        return {"params": params, "opt": self._opt.init(params)}
+
+    def run_epoch(self, state, client_data, rng, batch_size):
+        pooled = {k: np.concatenate([d[k] for d in client_data])
+                  for k in client_data[0]}
+        losses, weights = [], []
+        for batch in np_batches(pooled, batch_size, rng,
+                                self.drop_remainder):
+            state["params"], state["opt"], loss = self._step(
+                state["params"], state["opt"], self.to_device(batch))
+            losses.append(loss)
+            weights.append(len(batch["label"]))
+        losses = torch.stack(losses).cpu().tolist() if losses else []
+        return state, EpochLog(losses, len(losses), weights=weights)
+
+    def params_for_eval(self, state, client_idx):
+        return state["params"]

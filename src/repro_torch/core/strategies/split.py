@@ -1,15 +1,24 @@
-"""The split-learning family's shared pieces — counterpart of
-``repro/core/strategies/split.py``.
+"""Split learning (paper §1.2/§3.4) with the two training schedules —
+counterpart of ``repro/core/strategies/split.py`` (stepwise engine):
 
-Client segments are unique per hospital and never synchronized; the server
-segment is shared.  This slice ports what SplitFedv3 inherits (client
-trees, wire-epoch recording, eval params); plain split learning's own
-alternate-client / alternate-minibatch training is ROADMAP M5.
+* alternate-client (AC): prior art — clients take whole-dataset turns.
+* alternate-minibatch (AM): the paper's proposed schedule — mini-batch turns.
+
+Client segments (the front, and the tail under NLS) are unique per client
+and never synchronized (paper: "We do not use any form of weight
+synchronization").  The server segment and its Adam state are shared and
+updated one hospital-batch at a time in schedule order, never batched over
+hospitals: that would break the sequential Adam semantics of the shared
+server (DESIGN.md §9).
 """
 
 from __future__ import annotations
 
-from repro_torch.core.strategies.base import Strategy
+import torch
+
+from repro_torch.core.schedule import SCHEDULES
+from repro_torch.core.strategies.base import (EpochLog, Strategy, np_batches,
+                                              split_step_fn)
 
 
 class SplitLearning(Strategy):
@@ -22,9 +31,58 @@ class SplitLearning(Strategy):
         self.schedule = schedule
         self.transport = transport
         self.name = f"sl_{schedule}"
+        self._opt_c, self._opt_s = opt_factory(), opt_factory()
+        self._step = self._make_step()
+
+    def _make_step(self):
+        return split_step_fn(self.adapter, self._opt_c, self._opt_s,
+                             self.transport)
 
     def _client_tree(self, params):
-        return {"front": params["front"]}
+        t = {"front": params["front"]}
+        if self.adapter.nls:
+            t["tail"] = params["tail"]
+        return t
+
+    def setup(self, seed=0):
+        """Draw one model per hospital from ``torch.Generator(seed)`` on the
+        CPU (the same weights on every device); each hospital keeps its
+        client segment(s), the server starts from the first hospital's."""
+        gen = torch.Generator().manual_seed(int(seed))
+        clients, server = [], None
+        for _ in range(self.n_clients):
+            params = self.adapter.init(gen, self.device)
+            clients.append(self._client_tree(params))
+            if server is None:
+                server = params["middle"]
+        return {"clients": clients, "server": server,
+                "c_opts": [self._opt_c.init(c) for c in clients],
+                "s_opt": self._opt_s.init(server)}
+
+    def run_epoch(self, state, client_data, rng, batch_size):
+        batches = [np_batches(d, batch_size, rng, self.drop_remainder)
+                   for d in client_data]
+        order = SCHEDULES[self.schedule]([len(b) for b in batches])
+        losses, loss_w = [], []
+        client_steps = [0] * self.n_clients
+        for c, b in order:
+            host = batches[c][b]
+            (state["clients"][c], state["server"], state["c_opts"][c],
+             state["s_opt"], loss) = self._step(
+                state["clients"][c], state["server"], state["c_opts"][c],
+                state["s_opt"], self.to_device(host))
+            losses.append(loss)
+            loss_w.append(len(host["label"]))
+            client_steps[c] += 1
+            if self.transport is not None:
+                self.transport.account(self.adapter, host)
+        if order:
+            self._record_wire_epoch(next(bs[0] for bs in batches if bs),
+                                    [len(b) for b in batches])
+        self._end_of_epoch(state)
+        losses = torch.stack(losses).cpu().tolist() if losses else []
+        return state, EpochLog(losses, len(losses), weights=loss_w,
+                               client_steps=client_steps)
 
     def _record_wire_epoch(self, example_batch, n_batches):
         """Hand the transport this epoch's schedule signature."""
@@ -34,6 +92,12 @@ class SplitLearning(Strategy):
                                     self.name.rsplit("_", 1)[0],
                                     self.schedule, n_batches)
 
+    def _end_of_epoch(self, state):
+        pass
+
     def params_for_eval(self, state, client_idx):
-        return {"front": state["clients"][client_idx]["front"],
-                "middle": state["server"]}
+        ct = state["clients"][client_idx]
+        p = {"front": ct["front"], "middle": state["server"]}
+        if self.adapter.nls:
+            p["tail"] = ct["tail"]
+        return p

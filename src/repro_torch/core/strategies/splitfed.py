@@ -1,20 +1,49 @@
-"""SplitFedv3 (THE PAPER'S PROPOSAL, Algorithm 1) — counterpart of
-``repro/core/strategies/splitfed.py`` on the stepwise engine.
+"""SplitFed variants — counterpart of ``repro/core/strategies/splitfed.py``
+on the stepwise engine.
 
-Client segments stay unique (like SL), while the server segment is updated
-with the average of per-client gradients computed in parallel, one update
-per synchronous mini-batch step (the batch-synchronous reading of
-DESIGN.md §3).  Clients that exhaust their batches wrap around, so the
-server always averages ``n_clients`` gradients.
+* SFLv2 (Thapa et al.): the server segment trained SEQUENTIALLY like SL,
+  the client segments synchronized at the end of each epoch by an
+  unweighted mean.
+* SFLv3 (THE PAPER'S PROPOSAL, Algorithm 1): client segments stay unique
+  (like SL), while the server segment is updated with the average of
+  per-client gradients computed in parallel, one update per synchronous
+  mini-batch step (the batch-synchronous reading of DESIGN.md §3).
+  Clients that exhaust their batches wrap around, so the server always
+  averages ``n_clients`` gradients.
+* SFLv1 (the paper excluded it for hardware reasons): SFLv3's parallel
+  server + the unweighted mean of the client segments each epoch.
+
+Under NLS the client segments are the front and the tail, and the means
+cover both.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.aggregate import tree_mean
 from repro_torch.core.strategies.base import EpochLog, np_batches, \
     sflv3_step_fn
 from repro_torch.core.strategies.split import SplitLearning
+
+
+def _sync_clients(state, n_clients):
+    """Every hospital gets the unweighted mean of all client trees."""
+    avg = tree_mean(state["clients"])
+    state["clients"] = [avg for _ in range(n_clients)]
+
+
+class SplitFedV2(SplitLearning):
+    """Sequential server training + end-of-epoch client averaging."""
+
+    def __init__(self, adapter, opt_factory, n_clients, schedule="ac",
+                 transport=None, privacy=None, **kw):
+        super().__init__(adapter, opt_factory, n_clients, schedule,
+                         transport, privacy, **kw)
+        self.name = f"sflv2_{schedule}"
+
+    def _end_of_epoch(self, state):
+        _sync_clients(state, self.n_clients)
 
 
 class SplitFedV3(SplitLearning):
@@ -24,25 +53,16 @@ class SplitFedV3(SplitLearning):
                  transport=None, privacy=None, **kw):
         super().__init__(adapter, opt_factory, n_clients, schedule,
                          transport, privacy, **kw)
+        if not self.drop_remainder:
+            raise ValueError(
+                "SplitFedV3/V1 are batch-synchronous: every client ships a "
+                "same-shaped batch each step, so drop_remainder=False is "
+                "not representable; use drop_remainder=True")
         self.name = f"sflv3_{schedule}"
-        self._opt_c, self._opt_s = opt_factory(), opt_factory()
-        self._step3 = sflv3_step_fn(adapter, self._opt_c, self._opt_s,
-                                    n_clients, transport, privacy)
 
-    def setup(self, seed=0):
-        """Draw one model per hospital from ``torch.Generator(seed)`` on the
-        CPU (the same weights on every device); each hospital keeps its
-        client segment, the server starts from the first hospital's."""
-        gen = torch.Generator().manual_seed(int(seed))
-        clients, server = [], None
-        for _ in range(self.n_clients):
-            params = self.adapter.init(gen, self.device)
-            clients.append(self._client_tree(params))
-            if server is None:
-                server = params["middle"]
-        return {"clients": clients, "server": server,
-                "c_opts": [self._opt_c.init(c) for c in clients],
-                "s_opt": self._opt_s.init(server)}
+    def _make_step(self):
+        return sflv3_step_fn(self.adapter, self._opt_c, self._opt_s,
+                             self.n_clients, self.transport, self.privacy)
 
     def _check_batches(self, n_batches, batch_size):
         empty = [c for c, nb in enumerate(n_batches) if not nb]
@@ -62,7 +82,7 @@ class SplitFedV3(SplitLearning):
             host = [batches[c][s % len(batches[c])]
                     for c in range(self.n_clients)]
             (state["clients"], state["server"], state["c_opts"],
-             state["s_opt"], losses) = self._step3(
+             state["s_opt"], losses) = self._step(
                 state["clients"], state["server"], state["c_opts"],
                 state["s_opt"], [self.to_device(b) for b in host],
                 self._next_step() if self._keyed else 0)
@@ -75,7 +95,21 @@ class SplitFedV3(SplitLearning):
                 for b in host:
                     self.transport.account(self.adapter, b)
         self._record_wire_epoch(batches[0][0], [len(b) for b in batches])
+        self._end_of_epoch(state)
         losses = (torch.stack(step_losses).reshape(-1).cpu().tolist()
                   if step_losses else [])
         return state, EpochLog(losses, steps,
                                client_steps=[steps] * self.n_clients)
+
+
+class SplitFedV1(SplitFedV3):
+    """Parallel server (like v3) + fed-averaged clients each epoch."""
+
+    def __init__(self, adapter, opt_factory, n_clients, schedule="ac",
+                 transport=None, privacy=None, **kw):
+        super().__init__(adapter, opt_factory, n_clients, schedule,
+                         transport, privacy, **kw)
+        self.name = f"sflv1_{schedule}"
+
+    def _end_of_epoch(self, state):
+        _sync_clients(state, self.n_clients)

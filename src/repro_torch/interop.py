@@ -3,8 +3,9 @@ numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) and the port's.
 
   * conv weights: HWIO in the reference, OIHW in the port (any 4-D leaf);
   * a dense weight is (in, out) in both;
-  * SplitFedv3's ``stacked_clients`` / ``c_opt`` carry a leading hospital
-    axis in the reference and are per-hospital lists in the port;
+  * SplitFedv3/v1's ``stacked_clients`` / ``c_opt`` carry a leading
+    hospital axis in the reference and are per-hospital lists in the port;
+    SL/SFLv2's stepwise state is per-hospital lists in both;
   * an LM's params keep the reference's tree as it is (segment ->
     ``run_<id>`` -> leaves with their leading layer axis), with no
     transposition: a stacked LM leaf is not a conv weight, so they do not
@@ -64,6 +65,26 @@ def sflv3_state_from_jax(state, device="cpu"):
             "server": params_from_jax(state["server"], device),
             "c_opts": _adam_from_jax(state["c_opt"], device, n),
             "s_opt": _adam_from_jax(state["s_opt"], device)}
+
+
+def split_state_from_jax(state, device="cpu"):
+    """Reference stepwise SL/SFLv2 state (``clients`` and ``c_opts`` lists,
+    ``server``, ``s_opt``; numpy leaves; a client tree holds ``tail``
+    under NLS) -> the port's state dict."""
+    return {"clients": [params_from_jax(c, device)
+                        for c in state["clients"]],
+            "server": params_from_jax(state["server"], device),
+            "c_opts": [_adam_from_jax(o, device) for o in state["c_opts"]],
+            "s_opt": _adam_from_jax(state["s_opt"], device)}
+
+
+def full_state_from_jax(state, device="cpu"):
+    """Reference centralized (``params``, ``opt``) or FL (``params``)
+    state -> the port's."""
+    out = {"params": params_from_jax(state["params"], device)}
+    if "opt" in state:
+        out["opt"] = _adam_from_jax(state["opt"], device)
+    return out
 
 
 def lm_params_from_jax(tree, device="cpu"):

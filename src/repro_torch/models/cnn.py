@@ -1,39 +1,50 @@
-"""The paper's DenseNet-121 as an ordered list of *units*, so the cut-layer
-split of ``repro_torch.core.partition`` applies directly ("first 4 layers at
-the client" == units[0:4]).  Counterpart of ``repro/models/cnn.py``; the
-U-Net and the U-shaped split (``nls``) wait for a later slice.
+"""The paper's model families, DenseNet-121 and the U-Net (Xception-style
+encoder), as ordered lists of *units*, so the cut-layer split of
+``repro_torch.core.partition`` applies directly ("first 4 layers at the
+client" == units[0:4]).  Counterpart of ``repro/models/cnn.py``.  With
+``nls=True`` (the U-shaped, non-label-sharing split) the last unit goes
+back to the client as a ``tail`` segment.
 
-Layouts: a segment takes and returns contiguous NHWC tensors, as the
-reference does, so the cut tensor and its int8 rows (one row = all channels
-at one (b, h, w) position) are the reference's.  Inside a segment the units
-run on the NCHW view of that memory (``torch.channels_last``); ATen's CUDA
-GroupNorm returns NCHW-contiguous tensors, so after the first norm a
-segment runs in NCHW and leaving it copies once into NHWC.
+A segment boundary may carry a pytree: the U-Net front emits
+``(hidden, (skip0, ..., skip3))``, the skip connections crossing the cut.
+
+Layouts: a segment takes and returns contiguous NHWC tensors (every leaf of
+its boundary tree), as the reference does, so the cut tensors and their
+int8 rows (one row = all channels at one (b, h, w) position) are the
+reference's.  Inside a segment the units run on the NCHW view of that
+memory (``torch.channels_last``); ATen's CUDA GroupNorm returns
+NCHW-contiguous tensors, so after the first norm a segment runs in NCHW and
+leaving it copies each leaf once into NHWC.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
 
 Unit = tuple[str, Callable, Callable]   # (name, init(gen, device)->p, apply(p, x)->x)
 
 
 def to_nchw(x):
-    """NHWC activation -> its NCHW view (channels_last memory); a 2-D
-    tensor (logits) passes through."""
-    return x.permute(0, 3, 1, 2) if x.dim() == 4 else x
+    """NHWC activation (every leaf of a boundary tree) -> its NCHW view
+    (channels_last memory); a 2-D tensor (logits) passes through."""
+    return tree_map(lambda t: t.permute(0, 3, 1, 2) if t.dim() == 4 else t,
+                    x)
 
 
 def to_nhwc(h):
-    """NCHW activation -> a contiguous NHWC tensor (a copy unless ``h`` is
-    channels_last); a 2-D tensor passes through."""
-    return h.permute(0, 2, 3, 1).contiguous() if h.dim() == 4 else h
+    """NCHW activation (every leaf of a tree) -> a contiguous NHWC tensor
+    (a copy unless the leaf is channels_last); a 2-D tensor passes
+    through."""
+    return tree_map(lambda t: t.permute(0, 2, 3, 1).contiguous()
+                    if t.dim() == 4 else t, h)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,11 +52,17 @@ class CNNModel:
     name: str
     units: tuple[Unit, ...]
     cut: int                       # units[0:cut] -> client (front)
-    seg_names = ("front", "middle")
+    nls: bool = False              # True: last unit -> client tail
 
     @property
     def seg_bounds(self):
-        return (0, self.cut), (self.cut, len(self.units))
+        n = len(self.units)
+        tail_start = n - 1 if self.nls else n
+        return (0, self.cut), (self.cut, tail_start), (tail_start, n)
+
+    @property
+    def seg_names(self):
+        return ("front", "middle", "tail") if self.nls else ("front", "middle")
 
     def init_params(self, gen: torch.Generator, device: torch.device):
         """Draw every unit's params in unit order from ``gen``."""
@@ -69,11 +86,16 @@ class CNNModel:
         return x
 
 
-def bce_loss(logits, labels):
+def bce_terms(logits, labels):
+    """Per-example binary cross-entropy of logits, in f32: (B,)."""
     logits = logits.reshape(-1).float()
     labels = labels.reshape(-1).float()
-    return torch.mean(torch.clamp_min(logits, 0) - logits * labels
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return (torch.clamp_min(logits, 0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def bce_loss(logits, labels):
+    return torch.mean(bce_terms(logits, labels))
 
 
 # ---------------------------------------------------------------------------
@@ -127,11 +149,6 @@ def _transition(cfg: DenseNetConfig, in_ch: int, out_ch: int):
 
 def build_densenet(cfg: DenseNetConfig, cut: int | None = None,
                    nls: bool = False) -> CNNModel:
-    """``nls=True`` (the U-shaped split, last unit at the client) is not
-    ported yet and raises."""
-    if nls:
-        raise NotImplementedError("nls=True (the U-shaped split) is not "
-                                  "ported yet: ROADMAP M5 (strategies)")
     units: list[Unit] = []
 
     def stem_init(gen, device):
@@ -169,4 +186,95 @@ def build_densenet(cfg: DenseNetConfig, cut: int | None = None,
 
     units.append(("head", head_init, head_apply))
     return CNNModel(cfg.name, tuple(units),
-                    cut=cfg.cut_layer if cut is None else cut)
+                    cut=cfg.cut_layer if cut is None else cut, nls=nls)
+
+
+# ---------------------------------------------------------------------------
+# U-Net (depthwise-separable / Xception-flavoured encoder)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    name: str = "unet"
+    widths: tuple[int, ...] = (32, 64, 128, 256)   # encoder pyramid
+    in_ch: int = 1
+    n_classes: int = 1
+    cut_layer: int = 2           # paper: first 6 of a deeper net; scaled here
+
+
+def _sep_norm_pair(in_ch: int, out_ch: int):
+    """Two sepconv-GroupNorm-ReLU layers, the body of every U-Net block."""
+    def init(gen, device):
+        return {"c1": L.sepconv_init(gen, in_ch, out_ch, 3, device),
+                "n1": L.groupnorm_init(out_ch, device),
+                "c2": L.sepconv_init(gen, out_ch, out_ch, 3, device),
+                "n2": L.groupnorm_init(out_ch, device)}
+
+    def apply(p, x):
+        h = F.relu(L.groupnorm_apply(p["n1"], L.sepconv_apply(p["c1"], x)))
+        return F.relu(L.groupnorm_apply(p["n2"], L.sepconv_apply(p["c2"], h)))
+
+    return init, apply
+
+
+def _enc_block(in_ch: int, out_ch: int, down: bool):
+    init, body = _sep_norm_pair(in_ch, out_ch)
+
+    def apply(p, state):
+        x, skips = state
+        h = body(p, x)
+        if down:                       # the bottleneck adds no skip
+            skips = skips + (h,)
+            h = L.max_pool(h, 2, 2)
+        return (h, skips)
+
+    return init, apply
+
+
+def _dec_block(in_ch: int, skip_ch: int, out_ch: int):
+    init, body = _sep_norm_pair(in_ch + skip_ch, out_ch)
+
+    def apply(p, state):
+        x, skips = state
+        x = torch.cat([L.upsample2x(x), skips[-1]], dim=1)
+        return (body(p, x), skips[:-1])
+
+    return init, apply
+
+
+def build_unet(cfg: UNetConfig, cut: int | None = None,
+               nls: bool = False) -> CNNModel:
+    """Classification-via-segmentation U-Net (paper §3.2): the seg head's
+    logit map is pooled into an image-level logit."""
+    units: list[Unit] = []
+
+    def lift_apply(p, x):
+        return (x, ()) if not isinstance(x, tuple) else x
+
+    units.append(("lift", lambda gen, device: {}, lift_apply))
+    chans = [cfg.in_ch] + list(cfg.widths)
+    for i, (ci, co) in enumerate(zip(chans[:-1], chans[1:])):
+        init, apply = _enc_block(ci, co, down=i != len(cfg.widths) - 1)
+        units.append((f"enc{i}", init, apply))
+    ws = list(cfg.widths)
+    dec_in = ws[-1]
+    for i in range(len(ws) - 2, -1, -1):
+        init, apply = _dec_block(dec_in, ws[i], ws[i])
+        units.append((f"dec{i}", init, apply))
+        dec_in = ws[i]
+    head_ch = dec_in
+
+    def head_init(gen, device):
+        return {"c": L.conv_init(gen, head_ch, cfg.n_classes, 1, device)}
+
+    def head_apply(p, state):
+        x, _ = state
+        seg = L.conv_apply(p["c"], x)              # (B, 1, H, W) logit map
+        # smooth-max pooling -> image-level logit
+        return torch.logsumexp(seg.reshape(seg.shape[0], -1), dim=-1,
+                               keepdim=True) - math.log(
+                                   seg.shape[2] * seg.shape[3])
+
+    units.append(("head", head_init, head_apply))
+    return CNNModel(cfg.name, tuple(units),
+                    cut=cfg.cut_layer if cut is None else cut, nls=nls)

@@ -1,5 +1,5 @@
 """Primitives of the model families: the CNN subset of
-``repro/models/layers.py`` that DenseNet uses, and the LM subset (dense,
+``repro/models/layers.py`` that DenseNet and the U-Net use, and the LM subset (dense,
 RMSNorm, rotary embedding, GQA attention with its KV cache, SwiGLU,
 embedding) that the transformer and Mamba2 use.
 
@@ -23,6 +23,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.tree import tree_leaves
 
 INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -138,6 +140,34 @@ def max_pool(x, window=2, stride=2, padding="VALID"):
 
 def global_avg_pool(x):
     return x.mean(dim=(2, 3))
+
+
+def sepconv_init(gen, in_ch, out_ch, ksize, device):
+    """Depthwise-separable conv (Xception building block).  The depthwise
+    weight is drawn as (C, 1, k, k), ``F.conv2d(groups=C)``'s layout and
+    what ``interop`` makes of the reference's HWIO (k, k, 1, C)."""
+    return {"dw": _normal(gen, (in_ch, 1, ksize, ksize),
+                          math.sqrt(2.0 / (ksize * ksize)), device),
+            "pw": _normal(gen, (out_ch, in_ch, 1, 1), math.sqrt(2.0 / in_ch),
+                          device)}
+
+
+def sepconv_apply(p, x):
+    """"SAME" depthwise conv at stride 1, then the 1x1 pointwise conv."""
+    dw = p["dw"].to(x.dtype)
+    x = F.conv2d(x, dw, padding=dw.shape[-1] // 2, groups=x.shape[1])
+    return F.conv2d(x, p["pw"].to(x.dtype))
+
+
+def upsample2x(x):
+    """Nearest-neighbour resize of (B, C, H, W) to (B, C, 2H, 2W): each
+    pixel copied into a 2x2 block, as ``jax.image.resize(.., "nearest")``
+    does at exactly 2x."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def param_count(params) -> int:
+    return int(sum(l.numel() for l in tree_leaves(params)))
 
 
 # ---------------------------------------------------------------------------

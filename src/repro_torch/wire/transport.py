@@ -29,12 +29,14 @@ from repro_torch.wire.codec import Codec, make_codec, tree_wire_bytes
 @dataclasses.dataclass(frozen=True)
 class EpochSchedule:
     """One trained epoch's schedule signature (``Transport.record_epoch``):
-    method kind, client interleaving, per-client train batch counts and the
-    per-leg on-wire/raw byte sizes (``core.comm.leg_sizes``)."""
-    kind: str                   # "sflv3" in this slice
+    method kind, client interleaving, per-client train batch counts, the
+    per-leg on-wire/raw byte sizes (``core.comm.leg_sizes``) and whether
+    the split is U-shaped."""
+    kind: str                   # "sl" | "sflv2" | "sflv3" | "sflv1"
     schedule: str               # "ac" | "am"
     tr_counts: tuple            # per-client train batch counts
     legs: dict                  # leg name -> bytes (act_fm, act_mt, ...)
+    nls: bool
 
 
 @dataclasses.dataclass
@@ -83,8 +85,8 @@ class Transport:
 
     def account(self, adapter, batch: dict, train: bool = True,
                 count: int = 1):
-        """Record ``count`` steps' boundary traffic (activations up + grads
-        down per training step)."""
+        """Record ``count`` steps' boundary traffic: every crossing's
+        activations, and in training their gradients back."""
         key = ("bytes", *self._shape_key(adapter, batch))
         if key not in self._cache:
             from repro_torch.core.partition import leaf_bytes
@@ -108,7 +110,7 @@ class Transport:
                                          codec=self.codec)
         self.epoch_log.append(EpochSchedule(
             kind, schedule, tuple(int(n) for n in n_batches),
-            self._cache[key]))
+            self._cache[key], adapter.nls))
 
     @property
     def compression_ratio(self) -> float:

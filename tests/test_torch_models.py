@@ -11,7 +11,6 @@ gradients <= 1e-4, 20 Adam steps <= 1e-6.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro import optim as JO
@@ -110,8 +109,27 @@ def test_boundary_specs_equal_repro():
 
 
 def test_u_shaped_split_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="M5"):
-        build_densenet(DENSENET_MINI, nls=True)
+    """The U-shaped split builds and matches the reference: the same three
+    segments and units, each segment's output within 1e-5 from converted
+    params, and the same boundary specs, ``middle->tail`` included."""
+    ja = j_cnn_adapter(j_build(J_MINI, nls=True))
+    ta = cnn_adapter(build_densenet(DENSENET_MINI, nls=True))
+    assert ta.nls and ta.seg_names == ja.seg_names == ("front", "middle",
+                                                       "tail")
+    pt = ta.init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    pj = params_to_numpy(pt)
+    assert list(pt["tail"]) == ["head"]
+    b = _batch()
+    hj, ht = b["image"], torch.from_numpy(b["image"])
+    with torch.no_grad():
+        for seg in ja.seg_names:
+            hj = ja.apply_seg(seg, pj[seg], hj, b, True)
+            ht = ta.apply_seg(seg, pt[seg], ht, b, True)
+            _close(hj, ht.numpy(), 1e-5)
+    sj, st = ja.boundary_specs(b), ta.boundary_specs(b)
+    assert list(sj) == list(st) == ["front->middle", "middle->tail"]
+    for k in sj:
+        assert tuple(st[k].shape) == sj[k].shape
 
 
 def test_paper_densenet_cut_tensor_shape():

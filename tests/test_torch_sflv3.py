@@ -256,12 +256,18 @@ def test_port_setup_has_the_reference_layout(runs):
     (dict(shard=True), "M11"),
     (dict(participation=object()), "M9"),
     (dict(engine="compiled"), "M6"),
-    (dict(method="fl"), "M5"),
-    (dict(method="sflv2_ac"), "M5"),
+    (dict(method="fl", privacy=dict(noise_multiplier=1.0, clip_norm=1.0)),
+     "M8"),
+    (dict(method="sl_ac", nls=True,
+          privacy=dict(noise_multiplier=1.0, clip_norm=1.0)),
+     "M8"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kw, item):
-    ta = cnn_adapter(build_densenet(DENSENET_MINI))
+    from repro_torch.privacy import PrivacyConfig
+    ta = cnn_adapter(build_densenet(DENSENET_MINI, nls=kw.pop("nls", False)))
     method = kw.pop("method", "sflv3_ac")
+    if "privacy" in kw:
+        kw["privacy"] = PrivacyConfig(**kw["privacy"])
     with pytest.raises(NotImplementedError, match=item):
         make_strategy(method, ta, lambda: TO.adam(LR), N_CLIENTS,
                       device="cpu", **kw)
