@@ -25,7 +25,8 @@ Phases, in order; any failure exits nonzero before the last line:
      cores) within 3e-4 at small, grouped and ragged shapes (unaligned B/C
      rows too) and at the scoring shape (4 x 16 chunks x 128 x 24 heads x
      64, state 128) under two dt ranges; time each with CUDA events beside
-     its bound and, for K5-K7, one PyTorch call (K7: SDPA);
+     its bound and, for K5-K7, one PyTorch call (K7: SDPA); K1-K4 are
+     timed on bf16 rows too;
   4. train SplitFedv3 (``sflv3_ac``) on DenseNet-121-mini at 32^2 on the
      card and on the CPU from the same start, and hold the card's losses
      and scores against the CPU's plain path over an identity link (the
@@ -61,19 +62,35 @@ Phases, in order; any failure exits nonzero before the last line:
      output at every leaf of the first step bit-equal to its plain
      version on the same rows, the transport's bytes (exactly ``comm_per_epoch``'s train legs), the
      client sync (SFLv2/v1 one tree, SL/SFLv3 distinct) and ``evaluate``;
-  9. print one JSON line ``{"kernels": [...]}`` (K1-K8), then the last
-     line ``{"ok": true, "device": {...}}``.
+  9. the compiled engine (``core/strategies/engine.py``: one captured CUDA
+     graph per program, replayed) against the stepwise engine from the
+     same start, under cuDNN's deterministic algorithms: every DenseNet
+     run of phase 8 in f32 and in bf16, the private SFLv3 step (f32),
+     SFLv3 over the unfused int8 link (bf16: K1, K2 on bf16 rows),
+     3-epoch ``Strategy.run``s of SFLv3 and FL, the U-Net runs of phase
+     8 in bf16 and its SFLv3 runs in f32; per run every loss, param and
+     epsilon equal to the stepwise engine's, one capture per program
+     body, the launches per replay (K3 once per boundary leaf; K4-K6
+     once per hospital on the private step), K3's output at every
+     boundary leaf of the last replay bit-equal to its plain version on
+     the graph's own buffers, the wire bytes equal to ``comm_per_epoch``'s
+     train legs, ``evaluate``, and both engines' step seconds and peaks;
+ 10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
+     bf16 rows), then the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  ``--profile`` adds one profiled fused
 step of each main path, of the U-Net's SFLv3 and SL-AM (LS) in phase 8,
-and one profiled scoring forward of each LM (``torch.profiler``) and
-prints the device time by kernel.  The script imports nothing of JAX or
-of the JAX package ``repro``.
+one replayed step of the private SFLv3 and of SL-AM (f32) in phase 9,
+and one profiled scoring forward of each LM (``torch.profiler``), and
+prints the device time by kernel and the busy share (the union of the
+kernels' intervals over the wall time).  The script imports nothing of
+JAX or of the JAX package ``repro``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -240,6 +257,30 @@ def check_kernels(dev):
         table[key] = timed_row(key, name, "cut_layer.cu", replaces, kern,
                                plain, None, f"{t} x {MAIN_D} f32",
                                bound(key, t, MAIN_D, nin, nout), err[key])
+    del x, q, s
+    # the same at bf16 rows (precision="bf16" puts them on the main path):
+    # half the activation bytes; K4's noise z and mask w stay f32
+    x = (torch.randn((MAIN_ROWS, MAIN_D), device=dev, generator=gen)
+         * 3).to(torch.bfloat16)
+    q, s = AC.quantize_rows(x)
+    rows = [
+        ("K1", lambda: AC.quantize_rows(x), lambda: R.quantize_ref(x),
+         2 * n, n + 4 * t),
+        ("K2", lambda: AC.dequantize_rows(q, s, x.dtype),
+         lambda: R.dequantize_ref(q, s, x.dtype), n + 4 * t, 2 * n),
+        ("K3", lambda: CF.roundtrip_rows(x), lambda: R.roundtrip_ref(x),
+         2 * n, 2 * n),
+        ("K4", lambda: CF.noise_roundtrip_rows(x, z, w),
+         lambda: RF.noise_roundtrip_ref(x, z, w), 6 * n + 4 * t, 2 * n),
+    ]
+    for key, kern, plain, nin, nout in rows:
+        row = table[key]
+        b16 = timed_row(key, row["name"], "cut_layer.cu", row["replaces"],
+                        kern, plain, None, f"{t} x {MAIN_D} bf16",
+                        bound(key, t, MAIN_D, nin, nout), err[key])
+        row["bf16"] = {k: b16[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")} | {
+            "shape": [t, MAIN_D]}
     del x, z, w, q, s
     table["K3"]["unet_leaf"] = check_k3_unet_leaf(dev, gen)
     check_k3_past_2_31(dev, gen)
@@ -604,13 +645,14 @@ def check_lm_kernels(dev, gen):
 def train(method, adapter, clients, batch, device, fuse=True, seed=0,
           step_seconds=None, codec="int8", privacy=None, n_train=None,
           transport=None):
-    """Build a method of the Table-2 grid as a user would and train one
-    epoch (on the first ``n_train`` train images of each hospital, all by
-    default), over ``Transport(codec)`` (``codec`` None: no transport, as
-    centralized and FL have no cut layer); with a list ``step_seconds``
-    each step is timed on the host clock between two device
-    synchronisations.  ``privacy``: PrivacyConfig keywords; ``transport``:
-    a Transport to use instead of ``Transport(codec)``."""
+    """Build a method of the Table-2 grid as a user would, on the stepwise
+    engine (phases 4-8; phase 9 runs the compiled one beside it), and
+    train one epoch (on the first ``n_train`` train images of each
+    hospital, all by default), over ``Transport(codec)`` (``codec`` None:
+    no transport, as centralized and FL have no cut layer); with a list
+    ``step_seconds`` each step is timed on the host clock between two
+    device synchronisations.  ``privacy``: PrivacyConfig keywords;
+    ``transport``: a Transport to use instead of ``Transport(codec)``."""
     import numpy as np
     import torch
 
@@ -623,7 +665,7 @@ def train(method, adapter, clients, batch, device, fuse=True, seed=0,
         transport = Transport(codec, fuse=fuse, device=device)
     strat = make_strategy(
         method, adapter, lambda: O.adam(1e-4), len(clients),
-        transport=transport, device=device,
+        transport=transport, device=device, engine="stepwise",
         privacy=None if privacy is None else PrivacyConfig(**privacy))
     if step_seconds is not None:
         step = strat._step
@@ -1056,6 +1098,281 @@ def grid_path(dev, clients, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the compiled engine at full width
+# ---------------------------------------------------------------------------
+
+# (method, nls, precision, options) of each family's runs: every grid row
+# of phase 8 in f32 and bf16 on DenseNet-121, the private SFLv3 step in
+# f32, the unfused int8 link (K1, K2) on bf16 rows, 3-epoch runs of SFLv3
+# and FL; the U-Net rows in bf16, and its SFLv3 rows in f32 too (captured,
+# the f32 step peaks at 56-60 GiB of the card's 80: PERF.md, PR 18)
+COMPILED_DENSE = (
+    [(m, nls, p, {}) for p in ("fp32", "bf16") for m, nls in DENSE_GRID]
+    + [("sflv3_ac", False, "fp32", {"privacy": PRIVACY}),
+       ("sflv3_ac", False, "bf16", {"fuse": False}),
+       ("sflv3_ac", False, "fp32", {"epochs": 3}),
+       ("fl", False, "fp32", {"epochs": 3})])
+COMPILED_UNET = ([(m, nls, "bf16", {}) for m, nls in UNET_GRID]
+                 + [("sflv3_ac", False, "fp32", {}),
+                    ("sflv3_ac", True, "fp32", {})])
+
+
+@contextlib.contextmanager
+def timed_programs(calls):
+    """Time every call of a compiled program (one step or round replay,
+    the first of each body with its warm-up and capture) on the host
+    clock between two device synchronisations: ``calls`` gets (body,
+    seconds, captured in this call)."""
+    import torch
+
+    from repro_torch.core.strategies import engine as ENG
+
+    orig = ENG.Program.__call__
+
+    def timed(self, name):
+        fresh = name not in self.graphs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(self, name)
+        torch.cuda.synchronize()
+        calls.append((name, time.perf_counter() - t0, fresh))
+    ENG.Program.__call__ = timed
+    try:
+        yield
+    finally:
+        ENG.Program.__call__ = orig
+
+
+def captured_leaves(transport):
+    """Keep the (input, output) of every K3 (or K1/K2 pair) call the
+    transport's codec makes while a CUDA graph is being captured: the
+    graph's own buffers, which every replay rewrites in place.  Holding
+    them keeps the allocator from reusing their memory inside the
+    capture; after a replay they hold that replay's cut tensors."""
+    import torch
+
+    codec, held = transport.codec, []
+    for attr in ("fused_roundtrip", "roundtrip"):
+        fn = getattr(codec, attr)
+
+        def keep(x, fn=fn):
+            out = fn(x)
+            if torch.cuda.is_current_stream_capturing():
+                held.append((x, out))
+            return out
+        setattr(codec, attr, keep)
+    return held
+
+
+def engine_run(engine, method, nls, adapter, clients, batch, dev, precision,
+               privacy=None, fuse=True, epochs=1):
+    """``epochs`` epochs of one grid row on ``engine`` from seed 0 (2
+    batches per hospital an epoch), with ``Strategy.run``; returns a dict
+    of the strategy, state, logs, transport, step seconds (stepwise: each
+    step; compiled: each replay, and the first call of each body apart),
+    the run's wall time, peak memory and the K3 pairs captured."""
+    import numpy as np
+    import torch
+
+    from repro_torch import optim as O
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.privacy import PrivacyConfig
+    from repro_torch.wire import Transport
+
+    split = method not in ("centralized", "fl")
+    tr = Transport("int8", fuse=fuse, device=dev) if split else None
+    held = captured_leaves(tr) if split and engine == "compiled" else []
+    strat = make_strategy(
+        method, adapter, lambda: O.adam(1e-4), len(clients), transport=tr,
+        privacy=None if privacy is None else PrivacyConfig(**privacy),
+        engine=engine, precision=precision, device=dev)
+    calls, step_s = [], []
+    if engine == "stepwise":
+        step = strat._step
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+        strat._step = timed
+    state = strat.setup(0)
+    data = [{k: v[:2 * batch] for k, v in c.train.items()} for c in clients]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_programs(calls) if engine == "compiled" \
+            else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        state, logs = strat.run(state, data, np.random.default_rng(1), batch,
+                                epochs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if engine == "compiled":
+        step_s = [t for name, t, fresh in calls if name == "step"
+                  and not fresh]
+    return dict(strat=strat, state=state, logs=logs, tr=tr, wall=wall,
+                step_s=step_s, peak=torch.cuda.max_memory_allocated(),
+                first=[(name, t) for name, t, fresh in calls if fresh],
+                held=held)
+
+
+def engine_pair(method, nls, precision, opts, adapter, clients, batch, dev,
+                profile=False):
+    """One phase-9 run: the stepwise and the compiled engine from the same
+    start, and their checks.
+
+    Bar: equal.  Phase 9 runs with ``cudnn.deterministic`` (cuDNN's
+    default weight-gradient algorithms add in a run-dependent order), so
+    the stepwise engine repeats itself bit for bit; the compiled step
+    replays the same kernels on the same inputs, so every loss, every
+    param of every hospital and epsilon must be the stepwise engine's
+    exactly, and the wire bytes equal ``comm_per_epoch``'s train legs.
+    The compiled run must be ONE program (one capture per body: the step,
+    and the round of FL/SFLv2/SFLv1), K3 must launch once per boundary
+    leaf and replay (K4/K5/K6 once per hospital on the private step),
+    and K3's output at every boundary leaf of the last replay must be
+    bit-equal to its plain version on the graph's own input buffer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.comm import comm_per_epoch
+    from repro_torch.tree import tree_leaves
+
+    epochs, fuse = opts.get("epochs", 1), opts.get("fuse", True)
+    privacy = opts.get("privacy")
+    label = (f"{method} {'NLS' if nls else 'LS'} {precision}"
+             + (" private" if privacy else "")
+             + ("" if fuse else " unfused") + (f" x{epochs} epochs"
+                                                if epochs > 1 else ""))
+    runs = {}
+    for engine in ("stepwise", "compiled"):
+        runs[engine] = engine_run(engine, method, nls, adapter, clients,
+                                  batch, dev, precision, privacy, fuse,
+                                  epochs)
+        torch.cuda.empty_cache()
+    sw, cp = runs["stepwise"], runs["compiled"]
+    strat = cp["strat"]
+    progs = list(strat._programs.values())
+    prog = progs[0]
+    bodies = len(prog.bodies)
+    per = prog.per_replay.get("step", {})
+    dl = max(float(np.abs(np.asarray(a.losses) - np.asarray(b.losses))
+                   .max()) for a, b in zip(sw["logs"], cp["logs"]))
+    dp, same = 0.0, True
+    for c in range(len(clients)):
+        for a, b in zip(tree_leaves(sw["strat"].params_for_eval(
+                sw["state"], c)), tree_leaves(strat.params_for_eval(
+                cp["state"], c))):
+            same = same and torch.equal(a, b)
+            dp = max(dp, float((a - b).abs().max()))
+    log(f"  {label}: step seconds stepwise "
+        f"{[round(x, 4) for x in sw['step_s']]}, compiled "
+        f"{[round(x, 4) for x in cp['step_s']]} (first call of each body, "
+        f"with warm-up and capture: "
+        f"{[(n, round(t, 3)) for n, t in cp['first']]}); run wall "
+        f"{sw['wall']:.3f} / {cp['wall']:.3f} s; peak "
+        f"{sw['peak'] / 2**30:.2f} / {cp['peak'] / 2**30:.2f} GiB")
+    log(f"    compiled: {len(progs)} program, {prog.captures} captures, "
+        f"per replay {json.dumps(per)}; |loss diff| {dl:.3g}, "
+        f"|param diff| {dp:.3g}")
+    if len(progs) != 1 or prog.captures != bodies:
+        fail(f"{label}: {len(progs)} programs and {prog.captures} captures;"
+             f" expected one program captured once per body ({bodies})")
+    if not (dl == 0 and same and all(
+            a.losses == b.losses and a.weights == b.weights
+            and a.client_steps == b.client_steps
+            for a, b in zip(sw["logs"], cp["logs"]))):
+        fail(f"{label}: the compiled engine disagrees with the stepwise one")
+    if not all(np.isfinite(l.losses).all() for l in cp["logs"]):
+        fail(f"{label}: non-finite losses")
+    if privacy and sw["strat"].privacy_report() != strat.privacy_report():
+        fail(f"{label}: epsilon differs between the engines")
+    split = method not in ("centralized", "fl")
+    if split:
+        example = {k: v[:batch] for k, v in clients[0].train.items()}
+        leaves = sum(len(tree_leaves(t)) for t in
+                     strat.adapter.boundary_specs(example).values())
+        comm = comm_per_epoch(method, strat.adapter, example,
+                              [2 * batch] * len(clients),
+                              [len(c.val["label"]) for c in clients], batch,
+                              codec=cp["tr"].codec)
+        legs = epochs * sum(v for k, v in comm.breakdown.items()
+                            if k.startswith("train_"))
+        if not cp["tr"].bytes_on_wire == sw["tr"].bytes_on_wire == legs:
+            fail(f"{label}: wire bytes {cp['tr'].bytes_on_wire} compiled, "
+                 f"{sw['tr'].bytes_on_wire} stepwise, comm_per_epoch's "
+                 f"train legs {legs}")
+        n = len(clients)
+        if privacy:
+            want = {"cut_noise_roundtrip": n, "dp_sqnorms": n,
+                    "dp_scale_accum": n}
+        elif fuse:
+            want = {"cut_roundtrip": leaves}
+        else:
+            want = {"cut_quantize": leaves, "cut_dequantize": leaves}
+        if per != want:
+            fail(f"{label}: launches per replay {per}, expected {want}")
+        held = cp["held"]
+        ok = [k3_equals_plain(x, out) for x, out in held]
+        log(f"    K3 == plain at the last replay's {len(ok)} leaves: "
+            f"{all(ok)}")
+        if not privacy and (len(ok) != leaves or not all(ok)):
+            fail(f"{label}: the link disagrees with its plain version on "
+                 "the graph's buffers, or a leaf went unheld")
+    elif per:
+        fail(f"{label}: a kernel launched without a cut layer: {per}")
+    evaluate(strat, cp["state"], clients)
+    if profile:
+        prog.t.zero_()
+        profile_call(lambda: prog("step"), f"{label} replayed step",
+                     KERNEL_GROUPS)
+    del runs, sw, cp, strat, progs, prog
+    torch.cuda.empty_cache()
+
+
+def compiled_path(dev, clients, profile=False):
+    """Phase 9: the compiled engine against the stepwise one on every run
+    of ``COMPILED_DENSE`` (DenseNet-121 at 224^2, 5 hospitals x 2 batches
+    of 16) and ``COMPILED_UNET`` (the U-Net at 768^2, 5 x 2 batches of
+    UNET_BATCH), each checked by ``engine_pair``.  Returns the launches of
+    K1-K6 in the phase.  ``profile`` profiles one replayed step of the
+    private SFLv3 run and of SL-AM (LS, f32)."""
+    import torch
+
+    from repro_torch.configs.paper_models import DENSENET121_PAPER, UNET_PAPER
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.data.synthetic import make_cxr_clients
+    from repro_torch.models.cnn import build_densenet, build_unet
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches()
+        for method, nls, precision, opts in COMPILED_DENSE:
+            engine_pair(method, nls, precision, opts, cnn_adapter(
+                build_densenet(DENSENET121_PAPER, nls=nls)), clients, BATCH,
+                dev, profile and ("privacy" in opts or (
+                    method == "sl_am" and not nls and precision == "fp32")))
+        unet_clients = make_cxr_clients(
+            seed=0, n_clients=5, train_per_client=2 * UNET_BATCH,
+            val_per_client=UNET_BATCH, test_per_client=UNET_BATCH,
+            image_size=UNET_SIZE)
+        for method, nls, precision, opts in COMPILED_UNET:
+            engine_pair(method, nls, precision, opts, cnn_adapter(
+                build_unet(UNET_PAPER, nls=nls)), unet_clients, UNET_BATCH,
+                dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = {k: v.launches for k, v in path_kernels().items()}
+    log(f"  launches in phase 9: {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel of the compiled path never launched: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 7: the LM serving slice
 # ---------------------------------------------------------------------------
 
@@ -1325,9 +1642,31 @@ def profile_step(strat, state, clients, batch, label):
                  f"{label} step", KERNEL_GROUPS)
 
 
+def busy_ms(prof) -> float | None:
+    """The time at least one kernel ran, the union of the kernels'
+    intervals in the trace (a CUDA graph runs independent branches, such
+    as the hospitals of a private step, side by side, so the kernels'
+    times can add up to more than the wall time); None if the trace holds
+    no intervals."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e3
+
+
 def profile_call(fn, label, kernel_groups):
     """Device time of one call of ``fn``, by kernel and by group, and the
-    share of its wall time the device was busy."""
+    share of its wall time the device was busy (``busy_ms``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1346,9 +1685,11 @@ def profile_call(fn, label, kernel_groups):
     if not total:
         log("  profile: no device time recorded (not measured)")
         return
+    busy = busy_ms(prof)
     log(f"  profile of one {label}: kernels {total:.3f} ms on the "
         f"device, {wall_ms:.3f} ms wall under the profiler, busy "
-        f"{100 * total / wall_ms:.1f}%")
+        + ("not measured" if busy is None else
+           f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)"))
     groups = dict.fromkeys([g for g, _ in kernel_groups] + ["other"], 0.0)
     for e in kernels:
         name = next((g for g, frags in kernel_groups
@@ -1427,7 +1768,14 @@ def main():
           f"at {UNET_SIZE}^2")
     for key, n in grid_path(dev, clients, args.profile).items():
         launches[key] += n
+
+    phase("phase 9: the compiled engine against the stepwise one, "
+          f"DenseNet-121 at 224^2 and the U-Net at {UNET_SIZE}^2")
+    for key, n in compiled_path(dev, clients, args.profile).items():
+        launches[key] += n
     del clients
+
+    phase("phase 10: the kernels line")
     for key, n in launches.items():
         table[key]["launches"] = n
     phase(None)

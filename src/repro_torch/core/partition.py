@@ -43,17 +43,25 @@ class SplitAdapter:
     def nls(self) -> bool:
         return "tail" in self.seg_names
 
-    def full_loss(self, params, batch, train=True, boundary=None):
+    def full_loss(self, params, batch, train=True, boundary=None,
+                  weights=None):
         """``boundary``: optional fn applied to every cross-segment
         activation tree (the ``repro_torch.wire`` transport hook: the next
-        segment sees what crossed the wire)."""
+        segment sees what crossed the wire).  ``weights``: optional (B,)
+        per-example weights; the loss is then their weighted mean of the
+        per-example losses, which is how the compiled engine keeps the
+        padding rows of a pad-and-mask remainder batch out of the loss."""
         x = self.inputs(batch)
         last = len(self.seg_names) - 1
         for i, seg in enumerate(self.seg_names):
             x = self.apply_seg(seg, params[seg], x, batch, train)
             if boundary is not None and i < last:
                 x = boundary(x)
-        return self.loss_from_output(x, batch)
+        if weights is None:
+            return self.loss_from_output(x, batch)
+        pe = self.per_example_loss(x, batch).float()
+        w = weights.float()
+        return (pe * w).sum() / torch.clamp_min(w.sum(), 1.0)
 
     def full_scores(self, params, batch):
         x = self.inputs(batch)
@@ -110,6 +118,43 @@ def cnn_adapter(model) -> SplitAdapter:
                         inputs, apply_seg, loss_from_output,
                         scores_from_output, per_example_loss,
                         batch_keys=("image", "label"))
+
+
+PRECISIONS = ("fp32", "bf16")
+
+
+def cast_adapter(adapter: SplitAdapter, precision: str) -> SplitAdapter:
+    """Mixed-precision view of an adapter: bf16 compute, f32 masters.
+
+    With ``precision="bf16"`` every TRAINING segment application casts its
+    floating params and activations to bfloat16 before the underlying
+    ``apply_seg``, so the convolutions of the forward and backward run in
+    bf16 while the params the optimizer owns stay f32: autograd carries
+    the gradient back through the cast and it arrives in f32.  Master
+    params, optimizer state, aggregation and the losses (every adapter
+    reduces them in f32) stay f32, and evaluation (``train=False``) is
+    untouched.  Boundary specs inherit the cast (the training activations
+    ARE bf16 on the wire), so the analytic wire bytes are bf16 bytes.
+    ``precision="fp32"`` returns the adapter itself.
+    """
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} "
+                         f"(one of {PRECISIONS})")
+    if precision == "fp32":
+        return adapter
+
+    def cast(tree):
+        return tree_map(lambda l: l.to(torch.bfloat16)
+                        if l.is_floating_point() else l, tree)
+
+    inner = adapter.apply_seg
+
+    def apply_seg(seg, seg_params, x, batch, train=False):
+        if not train:
+            return inner(seg, seg_params, x, batch, train)
+        return inner(seg, cast(seg_params), cast(x), batch, train)
+
+    return dataclasses.replace(adapter, apply_seg=apply_seg)
 
 
 def leaf_bytes(tree) -> int:

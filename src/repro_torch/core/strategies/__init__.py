@@ -1,12 +1,14 @@
 """Strategy registry: the method grid of the paper's Table 2 —
-counterpart of ``repro.core.strategies`` on the stepwise engine.
+counterpart of ``repro.core.strategies``.
 
 Every method of ``METHODS`` is built, in the label-sharing (LS) and the
-U-shaped (NLS) cut.  Privacy runs on SFLv3 and on SFLv1 with the LS cut;
+U-shaped (NLS) cut, on the compiled engine (the default) or the stepwise
+one, in f32 or bf16.  Privacy runs on SFLv3 and on SFLv1 with the LS cut;
 every option still unported raises ``NotImplementedError`` naming the
 ROADMAP item that ports it.
 """
 
+from repro_torch.core.partition import cast_adapter
 from repro_torch.core.strategies.base import EpochLog, Strategy
 from repro_torch.core.strategies.centralized import Centralized
 from repro_torch.core.strategies.federated import FedAvg
@@ -23,7 +25,7 @@ _SPLIT = {"sl": SplitLearning, "sflv1": SplitFedV1, "sflv2": SplitFedV2,
 
 
 def make_strategy(method: str, adapter, opt_factory, n_clients,
-                  transport=None, privacy=None, engine="stepwise",
+                  transport=None, privacy=None, engine="compiled",
                   drop_remainder=True, shard=False, observe=None,
                   precision="fp32", participation=None, aggregator=None,
                   device=None):
@@ -40,22 +42,23 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
     ``device`` None means the CUDA card (raises without one); pass
     ``device="cpu"`` to run the plain PyTorch path on the CPU.
     ``precision="fp32"`` is full float32: on the card it turns cuDNN's
-    TF32 convolutions off (``device.use_full_fp32``).  The default engine
-    is ``"stepwise"``, the only one ported.
+    TF32 convolutions off (``device.use_full_fp32``); ``"bf16"`` trains
+    through ``partition.cast_adapter`` (bf16 compute, f32 masters).
+    ``engine="compiled"`` (the default, ``engine.py``) steps packed epochs
+    and whole runs with one captured CUDA graph; ``"stepwise"`` calls the
+    step from a Python loop.
     """
     unported = [
         (observe is not None, "observe=", "M10 (observability)"),
         (shard, "shard=True", "M11 (placement)"),
         (participation is not None, "participation=", "M9 (participation)"),
         (aggregator is not None, "aggregator=", "M9 (aggregation)"),
-        (precision == "bf16", 'precision="bf16"', "M4 (cast_adapter)"),
     ]
     for hit, what, item in unported:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet: ROADMAP "
                                       f"{item}")
-    if precision != "fp32":
-        raise ValueError(f"unknown precision {precision!r}")
+    adapter = cast_adapter(adapter, precision)
     kind, _, schedule = method.rpartition("_")
     if method in ("centralized", "fl"):
         if transport is not None:

@@ -1,7 +1,13 @@
 """Strategy API + the step functions — counterpart of
-``repro/core/strategies/base.py`` (stepwise engine): ``full_step_fn``
-(centralized, FL), ``split_step_fn`` (SL, SFLv2) and ``sflv3_step_fn``
-(SFLv3, SFLv1).
+``repro/core/strategies/base.py``: ``full_step_fn`` (centralized, FL),
+``split_step_fn`` (SL, SFLv2) and ``sflv3_step_fn`` (SFLv3, SFLv1).
+
+Two engines run the SAME step functions:
+  * ``compiled`` (the default; ``engine.py``): a whole epoch, or a whole
+    ``Strategy.run``, packed on the device (pad-and-mask) and stepped by
+    one captured CUDA graph of the step, replayed;
+  * ``stepwise``: a Python loop that calls the step once per mini-batch,
+    kept as the parity oracle.
 
 Every strategy consumes a ``SplitAdapter`` and an optimizer factory and
 exposes ``setup(seed) -> state``, ``run_epoch(state, client_data, rng,
@@ -23,15 +29,19 @@ import torch
 
 from repro_torch.core.partition import SplitAdapter, detached
 from repro_torch.optim import Optimizer, apply_updates
-from repro_torch.privacy.dpsgd import (CUT, DP, cut_noise_boundary,
-                                       dp_value_and_grad, draw_cut_noise,
-                                       make_generator)
+from repro_torch.privacy.dpsgd import cut_noise_boundary, dp_value_and_grad
 from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
 class EpochLog:
-    """Per-epoch training log (see the reference for ``weights``)."""
+    """Per-epoch training log.
+
+    ``weights`` are per-step valid-example counts (None: every step saw a
+    full batch); ``mean_loss`` is the example-weighted mean, so a compiled
+    (pad-and-mask) epoch and a stepwise epoch over the same data report
+    the same statistics.  ``client_steps`` counts the optimizer steps of
+    each hospital (masked padding steps excluded)."""
     losses: list
     steps: int
     weights: list | None = None
@@ -69,11 +79,9 @@ class Strategy:
 
     def __init__(self, adapter: SplitAdapter, opt_factory: Callable[[], Optimizer],
                  n_clients: int, device: torch.device, privacy=None,
-                 engine: str = "stepwise", drop_remainder: bool = True):
-        if engine != "stepwise":
-            raise NotImplementedError(
-                f"engine={engine!r}: the port has the stepwise engine only "
-                "(compiled engine: ROADMAP M6)")
+                 engine: str = "compiled", drop_remainder: bool = True):
+        if engine not in ("stepwise", "compiled"):
+            raise ValueError(f"unknown engine {engine!r}")
         self.adapter = adapter
         self.opt_factory = opt_factory
         self.n_clients = n_clients
@@ -83,13 +91,37 @@ class Strategy:
         self.drop_remainder = drop_remainder
         self._accountants = None
         self._key_step = 0
+        # the compiled engine's programs, one per packed layout
+        self._programs: dict = {}
 
     # -- to implement ---------------------------------------------------------
     def setup(self, seed=0):
         raise NotImplementedError
 
     def run_epoch(self, state, client_data, rng, batch_size):
+        """One epoch (round); returns ``(state, log)``."""
+        if self.engine == "compiled":
+            return self._run_epoch_compiled(state, client_data, rng,
+                                            batch_size)
+        return self._run_epoch_stepwise(state, client_data, rng, batch_size)
+
+    def _run_epoch_stepwise(self, state, client_data, rng, batch_size):
         raise NotImplementedError
+
+    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs):
+        """``n_epochs`` epochs as one replayed program (``engine.py``);
+        None when no hospital has a batch."""
+        raise NotImplementedError
+
+    def _run_epoch_compiled(self, state, client_data, rng, batch_size):
+        out = self._run_compiled(state, client_data, rng, batch_size, 1)
+        if out is None:
+            # no hospital has a batch: the loop trains nothing, and draws
+            # the shuffles the stepwise engine draws
+            return self._run_epoch_stepwise(state, client_data, rng,
+                                            batch_size)
+        state, logs = out
+        return state, logs[0]
 
     def params_for_eval(self, state, client_idx) -> dict:
         """Full param dict (all segments) used to score client ``client_idx``."""
@@ -98,12 +130,21 @@ class Strategy:
     def run(self, state, client_data, rng, batch_size, n_epochs,
             observe=None):
         """Train ``n_epochs`` epochs (rounds); returns ``(state, logs)``,
-        one ``EpochLog`` per epoch.  The stepwise engine runs the epochs one
-        after another; the compiled engine's single whole-run program is
-        ROADMAP M6."""
+        one ``EpochLog`` per epoch.  The compiled engine packs the whole
+        run up front (the same host shuffles and step-key indices as the
+        epoch loop, in the same order) and steps it with one program;
+        a run in which no hospital has a batch, and the stepwise engine,
+        run the epochs one after another."""
         if observe is not None:
             raise NotImplementedError("observe= is not ported yet: ROADMAP "
                                       "M10 (observability)")
+        if n_epochs <= 0:
+            return state, []
+        if self.engine == "compiled":
+            out = self._run_compiled(state, client_data, rng, batch_size,
+                                     n_epochs)
+            if out is not None:
+                return out
         logs = []
         for _ in range(n_epochs):
             state, log = self.run_epoch(state, client_data, rng, batch_size)
@@ -127,6 +168,15 @@ class Strategy:
         (``privacy.dpsgd.stream_seed``), 1 for the first step."""
         self._key_step += 1
         return self._key_step
+
+    def _take_key_indices(self, count: int) -> np.ndarray:
+        """Reserve ``count`` step indices of the same running counter
+        ``_next_step`` consumes: the compiled engine seeds step ``i``'s
+        draws from the i-th of them, so both engines draw the same
+        noise."""
+        start = self._key_step
+        self._key_step += count
+        return np.arange(start + 1, start + count + 1, dtype=np.int64)
 
     def _dp_account(self, client_idx, n_samples, batch_size, count=1):
         """Record ``count`` DP mechanism applications on hospital
@@ -219,11 +269,12 @@ def _client_params(adapter, cp, sp):
 
 def full_step_fn(adapter: SplitAdapter, opt: Optimizer):
     """Step over ALL segments jointly (centralized, FL local training):
-    ``step(params, opt_state, batch) -> (params, opt_state, loss)``, the
-    loss detached."""
-    def step(params, opt_state, batch):
+    ``step(params, opt_state, batch, weights=None) -> (params, opt_state,
+    loss)``, the loss detached; ``weights`` (B,) masks the padding rows of
+    a pad-and-mask remainder batch out of the loss."""
+    def step(params, opt_state, batch, weights=None):
         p = detached(params, True)
-        loss = adapter.full_loss(p, batch)
+        loss = adapter.full_loss(p, batch, weights=weights)
         g, = _grad_trees(loss, p)
         updates, opt_state = opt.update(g, opt_state)
         return apply_updates(params, updates), opt_state, loss.detach()
@@ -238,16 +289,18 @@ def split_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     ``transport`` every crossing goes through its codec, so the next
     segment trains on what crossed the wire.
 
-    ``step(client_params, server_params, c_opt, s_opt, batch)`` returns the
-    updated ``(client_params, server_params, c_opt, s_opt, loss)``.
+    ``step(client_params, server_params, c_opt, s_opt, batch,
+    weights=None)`` returns the updated ``(client_params, server_params,
+    c_opt, s_opt, loss)``; ``weights`` as in ``full_step_fn``.
     """
     boundary = transport.boundary if transport is not None else None
 
-    def step(client_params, server_params, c_opt, s_opt, batch):
+    def step(client_params, server_params, c_opt, s_opt, batch,
+             weights=None):
         cp = detached(client_params, True)
         sp = detached(server_params, True)
         loss = adapter.full_loss(_client_params(adapter, cp, sp), batch,
-                                 boundary=boundary)
+                                 boundary=boundary, weights=weights)
         gc, gs = _grad_trees(loss, cp, sp)
         cu, c_opt = opt_client.update(gc, c_opt)
         su, s_opt = opt_server.update(gs, s_opt)
@@ -273,12 +326,13 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     """SplitFedv3 step (paper Algorithm 1, batch-synchronous form; the
     reference's ``base.sflv3_step_fn`` without padding rows).
 
-    ``step(clients, server, c_opts, s_opt, batches, step=0)`` takes
+    ``step(clients, server, c_opts, s_opt, batches, draws=None)`` takes
     per-hospital lists of client trees, optimizer states and device
-    batches, and the running step index that seeds the privacy streams
-    (``privacy.dpsgd.stream_seed``); it returns the updated ``(clients,
-    server, c_opts, s_opt, losses)``, ``losses`` a detached (n_clients,)
-    tensor.
+    batches, and with privacy the step's noise, ``privacy.dpsgd.
+    step_draws``' list of per-hospital ``{"cut", "dp"}`` trees (drawn
+    outside, so a captured step reads them from static buffers); it
+    returns the updated ``(clients, server, c_opts, s_opt, losses)``,
+    ``losses`` a detached (n_clients,) tensor.
 
     Without DP-SGD each hospital's batch runs through its own front; the
     fronts' outputs are concatenated along the batch axis, so the cut layer
@@ -307,10 +361,6 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
             boundary, transport.fused_codec if transport is not None
             else None)
 
-    def cut_noise(tree, step, c, device):
-        gen = make_generator(privacy, step, c, CUT, device)
-        return draw_cut_noise(tree, gen, privacy.cut_noise_std)
-
     def update(clients, server, c_opts, s_opt, gcs, gs, losses):
         new_clients, new_c_opts = [], []
         for cp, gc, co in zip(clients, gcs, c_opts):
@@ -321,7 +371,7 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
         return (new_clients, apply_updates(server, su), new_c_opts, s_opt,
                 losses.detach())
 
-    def step_fn(clients, server, c_opts, s_opt, batches, step=0):
+    def step_fn(clients, server, c_opts, s_opt, batches, draws=None):
         cps = [detached(cp, True) for cp in clients]
         sp = detached(server, True)
         joint = {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
@@ -330,9 +380,7 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
         sizes = [tree_leaves(f)[0].shape[0] for f in fronts]
         h = _cat(fronts)
         if noised is not None:
-            h = noised(h, _cat([
-                cut_noise(f, step, c, tree_leaves(f)[0].device)
-                for c, f in enumerate(fronts)]))
+            h = noised(h, _cat([d["cut"] for d in draws]))
         elif boundary is not None:
             h = boundary(h)
         h = adapter.apply_seg("middle", sp, h, joint, True)
@@ -360,17 +408,13 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
 
     vg = dp_value_and_grad(loss_fn, privacy)
 
-    def dp_step(clients, server, c_opts, s_opt, batches, step=0):
+    def dp_step(clients, server, c_opts, s_opt, batches, draws=None):
         losses, gcs, gs = [], [], None
-        for c, (cp, b) in enumerate(zip(clients, batches)):
-            device = tree_leaves(b)[0].device
-            z = None
-            if noised is not None:
-                # the hospital's whole batch, drawn before the vmap
-                z = cut_noise(adapter.boundary_specs(b)["front->middle"],
-                              step, c, device)
-            gen = make_generator(privacy, step, c, DP, device)
-            loss, g = vg({"c": cp, "s": server}, b, gen, z)
+        for cp, b, d in zip(clients, batches, draws):
+            # the hospital's cut noise covers its whole batch and enters
+            # the per-example transform as a vmapped input
+            loss, g = vg({"c": cp, "s": server}, b, extra=d["cut"],
+                         noise=d["dp"])
             losses.append(loss)
             gcs.append(g["c"])
             gs = g["s"] if gs is None else tree_map(torch.add, gs, g["s"])

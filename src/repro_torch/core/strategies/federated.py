@@ -1,5 +1,5 @@
 """Federated learning with FedAvg (paper §1.1/§3.3) — counterpart of
-``repro/core/strategies/federated.py`` (stepwise engine).
+``repro/core/strategies/federated.py``.
 
 One federated round == one epoch (as in the paper): the global model is
 pushed to every client, each client runs one local epoch with a fresh Adam
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.aggregate import WeightedMean
+from repro_torch.core.strategies import engine as ENG
 from repro_torch.core.strategies.base import (EpochLog, Strategy,
                                               full_step_fn, np_batches)
 
@@ -30,7 +31,7 @@ class FedAvg(Strategy):
         return {"params": self.adapter.init(
             torch.Generator().manual_seed(int(seed)), self.device)}
 
-    def run_epoch(self, state, client_data, rng, batch_size):
+    def _run_epoch_stepwise(self, state, client_data, rng, batch_size):
         locals_, weights, losses, loss_w, client_steps = [], [], [], [], []
         for data in client_data:
             p = state["params"]                    # start from global
@@ -51,6 +52,23 @@ class FedAvg(Strategy):
         losses = torch.stack(losses).cpu().tolist() if losses else []
         return state, EpochLog(losses, len(losses), weights=loss_w,
                                client_steps=client_steps)
+
+    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs):
+        if ENG.empty_run(client_data, batch_size, self.drop_remainder):
+            return None
+        batches, packed = ENG.pack_run(client_data, batch_size, rng,
+                                       n_epochs, self.drop_remainder)
+        prog = ENG.program_for(self, "fl", packed, lambda: ENG.FLProgram(
+            self, packed, state))
+        prog.load(state)
+        losses = prog.run(batches).cpu().numpy()
+        prog.store(state)
+        logs = []
+        for e in range(n_epochs):
+            flat, loss_w = ENG.client_major_log(losses[e], packed)
+            logs.append(EpochLog(flat, len(flat), weights=loss_w,
+                                 client_steps=list(packed.n_batches)))
+        return state, logs
 
     def params_for_eval(self, state, client_idx):
         return state["params"]

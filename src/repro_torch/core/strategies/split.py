@@ -1,5 +1,5 @@
 """Split learning (paper §1.2/§3.4) with the two training schedules —
-counterpart of ``repro/core/strategies/split.py`` (stepwise engine):
+counterpart of ``repro/core/strategies/split.py``:
 
 * alternate-client (AC): prior art — clients take whole-dataset turns.
 * alternate-minibatch (AM): the paper's proposed schedule — mini-batch turns.
@@ -16,13 +16,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.schedule import SCHEDULES
+import numpy as np
+
+from repro_torch.core.schedule import SCHEDULES, schedule_array
+from repro_torch.core.strategies import engine as ENG
 from repro_torch.core.strategies.base import (EpochLog, Strategy, np_batches,
                                               split_step_fn)
 
 
 class SplitLearning(Strategy):
     name = "sl"
+    #: the epoch ends in the client sync (SFLv2, SFLv1)
+    _syncs_clients = False
 
     def __init__(self, adapter, opt_factory, n_clients, schedule="ac",
                  transport=None, privacy=None, **kw):
@@ -59,7 +64,7 @@ class SplitLearning(Strategy):
                 "c_opts": [self._opt_c.init(c) for c in clients],
                 "s_opt": self._opt_s.init(server)}
 
-    def run_epoch(self, state, client_data, rng, batch_size):
+    def _run_epoch_stepwise(self, state, client_data, rng, batch_size):
         batches = [np_batches(d, batch_size, rng, self.drop_remainder)
                    for d in client_data]
         order = SCHEDULES[self.schedule]([len(b) for b in batches])
@@ -83,6 +88,43 @@ class SplitLearning(Strategy):
         losses = torch.stack(losses).cpu().tolist() if losses else []
         return state, EpochLog(losses, len(losses), weights=loss_w,
                                client_steps=client_steps)
+
+    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs):
+        if ENG.empty_run(client_data, batch_size, self.drop_remainder):
+            return None
+        batches, packed = ENG.pack_run(client_data, batch_size, rng,
+                                       n_epochs, self.drop_remainder)
+        sched = schedule_array(self.schedule, packed.n_batches)
+        prog = ENG.program_for(
+            self, "interleaved", packed, lambda: ENG.InterleavedProgram(
+                self, packed, state, sched, self._syncs_clients))
+        prog.load(state)
+        losses = prog.run(batches).cpu().numpy()
+        prog.store(state)
+        logs = []
+        for e in range(n_epochs):
+            flat, loss_w = ENG.scheduled_log(losses[e], sched, packed)
+            logs.append(EpochLog(flat, len(flat), weights=loss_w,
+                                 client_steps=list(packed.n_batches)))
+        self._account_compiled(packed, batch_size, n_epochs)
+        return state, logs
+
+    def _account_compiled(self, packed, batch_size, n_epochs):
+        """The run's wire bytes from shapes and counts: each hospital's
+        steps metered at their true batch shape (a kept remainder batch at
+        its short one), as the stepwise loop meters them one by one."""
+        example = {k: v[0, 0] for k, v in packed.batches.items()}
+        for c, nb in enumerate(packed.n_batches):
+            if not nb or self.transport is None:
+                continue
+            for m, n_steps in zip(*np.unique(packed.step_examples[c],
+                                             return_counts=True)):
+                b = (example if m == packed.batch_size
+                     else {k: v[:m] for k, v in example.items()})
+                self.transport.account(self.adapter, b,
+                                       count=int(n_steps) * n_epochs)
+        for _ in range(n_epochs):
+            self._record_wire_epoch(example, packed.n_batches)
 
     def _record_wire_epoch(self, example_batch, n_batches):
         """Hand the transport this epoch's schedule signature."""

@@ -1,5 +1,4 @@
-"""SplitFed variants — counterpart of ``repro/core/strategies/splitfed.py``
-on the stepwise engine.
+"""SplitFed variants — counterpart of ``repro/core/strategies/splitfed.py``.
 
 * SFLv2 (Thapa et al.): the server segment trained SEQUENTIALLY like SL,
   the client segments synchronized at the end of each epoch by an
@@ -22,9 +21,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.aggregate import tree_mean
-from repro_torch.core.strategies.base import EpochLog, np_batches, \
-    sflv3_step_fn
+from repro_torch.core.strategies import engine as ENG
+from repro_torch.core.strategies.base import (EpochLog, np_batches,
+                                              sflv3_step_fn)
 from repro_torch.core.strategies.split import SplitLearning
+from repro_torch.privacy.dpsgd import step_draws
 
 
 def _sync_clients(state, n_clients):
@@ -35,6 +36,7 @@ def _sync_clients(state, n_clients):
 
 class SplitFedV2(SplitLearning):
     """Sequential server training + end-of-epoch client averaging."""
+    _syncs_clients = True
 
     def __init__(self, adapter, opt_factory, n_clients, schedule="ac",
                  transport=None, privacy=None, **kw):
@@ -59,10 +61,28 @@ class SplitFedV3(SplitLearning):
                 "same-shaped batch each step, so drop_remainder=False is "
                 "not representable; use drop_remainder=True")
         self.name = f"sflv3_{schedule}"
+        # the front's output shapes per batch shape (the cut noise's)
+        self._cut_specs: dict = {}
 
     def _make_step(self):
         return sflv3_step_fn(self.adapter, self._opt_c, self._opt_s,
                              self.n_clients, self.transport, self.privacy)
+
+    def _draws(self, step: int, clients, server, batch) -> list:
+        """One step's per-hospital noise (``privacy.dpsgd.step_draws``):
+        cut noise of the shapes of the front's output on ``batch`` (one
+        hospital's), DP noise of ``{"c": client tree, "s": server}``'s."""
+        cut = None
+        if self.privacy.cut_noise_std > 0:
+            key = tuple((k, tuple(v.shape), str(v.dtype))
+                        for k, v in sorted(batch.items()))
+            if key not in self._cut_specs:
+                self._cut_specs[key] = self.adapter.boundary_specs(
+                    batch)["front->middle"]
+            cut = self._cut_specs[key]
+        return step_draws(self.privacy, step, self.n_clients, cut,
+                          [{"c": cp, "s": server} for cp in clients],
+                          self.device)
 
     def _check_batches(self, n_batches, batch_size):
         empty = [c for c, nb in enumerate(n_batches) if not nb]
@@ -72,7 +92,7 @@ class SplitFedV3(SplitLearning):
                 "train samples; SplitFedV3 needs at least one batch per "
                 "client")
 
-    def run_epoch(self, state, client_data, rng, batch_size):
+    def _run_epoch_stepwise(self, state, client_data, rng, batch_size):
         batches = [np_batches(d, batch_size, rng) for d in client_data]
         self._check_batches([len(b) for b in batches], batch_size)
         steps = max(len(b) for b in batches)
@@ -81,11 +101,13 @@ class SplitFedV3(SplitLearning):
             # clients that exhausted their data wrap around
             host = [batches[c][s % len(batches[c])]
                     for c in range(self.n_clients)]
+            draws = (self._draws(self._next_step(), state["clients"],
+                                 state["server"], host[0])
+                     if self._keyed else None)
             (state["clients"], state["server"], state["c_opts"],
              state["s_opt"], losses) = self._step(
                 state["clients"], state["server"], state["c_opts"],
-                state["s_opt"], [self.to_device(b) for b in host],
-                self._next_step() if self._keyed else 0)
+                state["s_opt"], [self.to_device(b) for b in host], draws)
             step_losses.append(losses)
             for c in range(self.n_clients):
                 # wrap-around resampling included: every client is touched
@@ -101,9 +123,41 @@ class SplitFedV3(SplitLearning):
         return state, EpochLog(losses, steps,
                                client_steps=[steps] * self.n_clients)
 
+    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs):
+        batches, packed = ENG.pack_run(client_data, batch_size, rng,
+                                       n_epochs)
+        self._check_batches(packed.n_batches, batch_size)
+        steps = packed.nb_max
+        key_idx = [self._take_key_indices(steps) if self._keyed else None
+                   for _ in range(n_epochs)]
+        prog = ENG.program_for(self, "sync", packed, lambda: ENG.SyncProgram(
+            self, packed, state, self._syncs_clients))
+        prog.load(state)
+        example = {k: v[0, 0] for k, v in packed.batches.items()}
+        draw = None
+        if self._keyed:
+            def draw(i):
+                return self._draws(i, prog.clients, prog.server, example)
+        losses = prog.run(batches, draw, key_idx).cpu().numpy()
+        prog.store(state)
+        # every hospital takes part in every synchronous step (wrap-around
+        # included), so the counts are ``steps`` an epoch for DP and wire
+        for c in range(self.n_clients):
+            self._dp_account(c, packed.n_samples[c], batch_size,
+                             count=steps * n_epochs)
+            if self.transport is not None:
+                self.transport.account(self.adapter, example,
+                                       count=steps * n_epochs)
+        for _ in range(n_epochs):
+            self._record_wire_epoch(example, packed.n_batches)
+        return state, [EpochLog(losses[e].reshape(-1).tolist(), steps,
+                                client_steps=[steps] * self.n_clients)
+                       for e in range(n_epochs)]
+
 
 class SplitFedV1(SplitFedV3):
     """Parallel server (like v3) + fed-averaged clients each epoch."""
+    _syncs_clients = True
 
     def __init__(self, adapter, opt_factory, n_clients, schedule="ac",
                  transport=None, privacy=None, **kw):

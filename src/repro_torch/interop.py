@@ -47,11 +47,12 @@ def _unstack(tree, n):
 def _adam_from_jax(opt, device, n=None):
     """Reference Adam state ``{"step", "mu", "nu"}`` -> the port's (a list
     of ``n`` per-hospital states when the moments are stacked)."""
-    step = int(np.asarray(opt["step"]))
+    step = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int64,
+                        device=device)
     if n is None:
         return {"step": step, "mu": params_from_jax(opt["mu"], device),
                 "nu": params_from_jax(opt["nu"], device)}
-    return [{"step": step, "mu": params_from_jax(m, device),
+    return [{"step": step.clone(), "mu": params_from_jax(m, device),
              "nu": params_from_jax(v, device)}
             for m, v in zip(_unstack(opt["mu"], n), _unstack(opt["nu"], n))]
 

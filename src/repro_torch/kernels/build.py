@@ -96,10 +96,17 @@ class CudaKernel:
 
     ``launches`` goes up by one for every launch the kernel accepted, and
     nowhere else; a caller that wants the count of one run sets it to 0
-    before the run.
+    before the run.  A CUDA graph replays its launches without calling
+    the wrapper: the compiled engine (``core/strategies/engine.py``) takes
+    back the counts its capture added (a capture records, it does not
+    launch) and adds each graph's launches at every replay.
     """
 
+    #: every entry point of the port, in the order they were declared
+    instances: list = []
+
     def __init__(self, source: str, symbol: str, argtypes):
+        CudaKernel.instances.append(self)
         self.source = source
         self.symbol = symbol
         # every entry point takes the stream last
@@ -117,6 +124,73 @@ class CudaKernel:
 
     def __repr__(self):
         return f"CudaKernel({self.symbol}, launches={self.launches})"
+
+
+class GraphTables:
+    """The device tables (``upload_int64``) of one captured CUDA graph.
+
+    A table holds host data (device pointers of the step's own tensors),
+    so the graph cannot write it: it is copied in once, after the capture.
+    Nor can it live in the graph's memory pool, which hands the memory of
+    a tensor freed earlier in the capture to a later one, so that every
+    replay would overwrite the table with the step's intermediates.  So
+    the warm-up run of the step records the size of every table it
+    uploads, ``reserve`` allocates them outside the pool before the
+    capture, the capture takes them in the same order, and ``fill``
+    writes the values the capture computed.  Use it as a context around
+    the warm-up and around the capture; keep it as long as the graph.
+    """
+
+    def __init__(self):
+        self.sizes: list = []
+        self.tables: list = []
+        self.values: list = []
+
+    def __enter__(self):
+        _ACTIVE.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _ACTIVE.remove(self)
+
+    def reserve(self, device) -> None:
+        self.tables = [torch.empty((n,), dtype=torch.int64, device=device)
+                       for n in self.sizes]
+
+    def take(self, values) -> torch.Tensor:
+        i = len(self.values)
+        if i >= len(self.tables) or self.tables[i].numel() != len(values):
+            raise RuntimeError(
+                "upload_int64 during a CUDA graph capture: the warm-up run "
+                "did not upload a table of this size at this point")
+        self.values.append(list(values))
+        return self.tables[i]
+
+    def fill(self) -> None:
+        for t, v in zip(self.tables, self.values):
+            t.copy_(torch.tensor(v, dtype=torch.int64))
+
+
+# the GraphTables of the capture (or warm-up) in progress, innermost last
+_ACTIVE: list = []
+
+
+def upload_int64(values, device) -> torch.Tensor:
+    """``values`` (Python ints) -> an int64 tensor on ``device``: one
+    pinned host-to-device copy, or, during a CUDA graph capture, the next
+    table of the active ``GraphTables`` (a capture without one raises: a
+    host copy recorded in a graph would read a host buffer the allocator
+    reuses after the capture)."""
+    active = _ACTIVE[-1] if _ACTIVE else None
+    if torch.cuda.is_current_stream_capturing():
+        if active is None:
+            raise RuntimeError("upload_int64 during a CUDA graph capture "
+                               "needs a GraphTables (see its docstring)")
+        return active.take(values)
+    if active is not None:
+        active.sizes.append(len(values))
+    return torch.tensor(values, dtype=torch.int64).pin_memory().to(
+        device, non_blocking=True)
 
 
 def check_rows(x: torch.Tensor, dtypes, name: str) -> None:

@@ -30,8 +30,9 @@ roundtrip_boundary = straight_through(fused_roundtrip)
 
 def _noise_roundtrip(x, z):
     """K4 over the rows of x (B, ..., D): ``roundtrip(x) + z.to(x.dtype)``,
-    z the pre-scaled f32 noise of x's shape (``dpsgd.draw_cut_noise``).
-    Every row is weighted 1: the stepwise engine has no padding rows."""
+    z the pre-scaled f32 noise of x's shape (``dpsgd.draw_noise``).
+    Every row is weighted 1: privacy runs on SFLv3/v1 only, whose batches
+    are never padded."""
     d = x.shape[-1]
     rows = x.reshape(-1, d).contiguous()
     w = torch.ones((rows.shape[0], 1), dtype=torch.float32, device=x.device)

@@ -77,9 +77,8 @@ def leaf_table(leaves) -> LeafTable:
         if l.shape[0] != b or l.device != dev:
             raise ValueError(f"leaf_table: every leaf must be (B={b}, n) on "
                              f"{dev}")
-    vals = table_values([l.data_ptr() for l in leaves], lens)
-    table = torch.tensor(vals, dtype=torch.int64).pin_memory().to(
-        dev, non_blocking=True)
+    table = B.upload_int64(table_values([l.data_ptr() for l in leaves],
+                                        lens), dev)
     return LeafTable(leaves, b, lens, chunks, groups, table)
 
 

@@ -1,6 +1,5 @@
 """Functional optimizers (counterpart of ``repro.optim``)."""
 
-from repro_torch.optim.optimizers import (Optimizer, adam, apply_updates,
-                                         tree_gaussian_noise)
+from repro_torch.optim.optimizers import Optimizer, adam, apply_updates
 
-__all__ = ["Optimizer", "adam", "apply_updates", "tree_gaussian_noise"]
+__all__ = ["Optimizer", "adam", "apply_updates"]

@@ -6,6 +6,9 @@ params = apply_updates(params, updates)``.
 
 Adam follows the reference op for op: moments in f32, bias corrections
 ``1 - b ** step`` computed in f32, ``eps`` added after the square root.
+Its step count is an int64 tensor on the params' device, so an update
+makes no host-to-device copy and can be captured in a CUDA graph: every
+replay reads and advances the count on the card.
 """
 
 from __future__ import annotations
@@ -24,17 +27,14 @@ class Optimizer:
     update: Callable[..., tuple[Any, Any]]   # (grads, state) -> (updates, state)
 
 
-def _f32(v, like):
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
-
-
 def adam(lr: float, b1=0.9, b2=0.999, eps=1e-8) -> Optimizer:
     """Adam with a constant step size (paper §3.2: b1=.9, b2=.999,
     lr=1e-4).  The reference's weight decay and schedules are ROADMAP M3."""
     def init(params):
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
-        return {"step": 0, "mu": tree_map(zeros, params),
-                "nu": tree_map(zeros, params)}
+        device = tree_leaves(params)[0].device
+        return {"step": torch.zeros((), dtype=torch.int64, device=device),
+                "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
     def update(grads, state):
@@ -43,10 +43,9 @@ def adam(lr: float, b1=0.9, b2=0.999, eps=1e-8) -> Optimizer:
                       state["mu"], grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
                       state["nu"], grads)
-        like = tree_leaves(mu)[0]
-        n = _f32(float(step), like)
-        bc1 = 1 - torch.pow(_f32(b1, like), n)
-        bc2 = 1 - torch.pow(_f32(b2, like), n)
+        n = step.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.full((), b1, device=n.device), n)
+        bc2 = 1 - torch.pow(torch.full((), b2, device=n.device), n)
 
         updates = tree_map(
             lambda m, v: -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps), mu, nu)
@@ -58,16 +57,3 @@ def adam(lr: float, b1=0.9, b2=0.999, eps=1e-8) -> Optimizer:
 @torch.no_grad()
 def apply_updates(params, updates):
     return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params, updates)
-
-
-@torch.no_grad()
-def tree_gaussian_noise(tree, gen: torch.Generator, std: float):
-    """``tree + N(0, std^2)`` leaf-wise, each leaf's draw taken in turn from
-    ``gen`` (on the leaves' device) in f32, each leaf's dtype kept — the
-    counterpart of the reference's key-split-per-leaf version."""
-    if std <= 0:
-        return tree
-    return tree_map(
-        lambda l: l + (std * torch.randn(l.shape, generator=gen,
-                                         device=l.device)).to(l.dtype),
-        tree)

@@ -1,6 +1,6 @@
-"""RDP (moments) accountant for the subsampled Gaussian mechanism — a copy
-of ``repro/privacy/accountant.py`` (pure Python), so the same ``step``
-calls give exactly the same epsilon.
+"""RDP (moments) accountant for the subsampled Gaussian mechanism — the
+counterpart of ``repro/privacy/accountant.py`` (pure Python, the same
+per-step RDP and conversion; see ``RDPAccountant`` for how it composes).
 
 Tracks Renyi-DP at a grid of integer orders and converts to an
 (eps, delta) statement.  For Poisson-style subsampling at rate ``q`` with
@@ -68,15 +68,24 @@ def rdp_to_eps(rdp: dict[int, float], delta: float) -> tuple[float, int]:
 
 
 class RDPAccountant:
-    """Composes subsampled-Gaussian steps; reports (eps, delta)."""
+    """Composes subsampled-Gaussian steps; reports (eps, delta).
+
+    It keeps an integer count of steps per sampling rate and forms the RDP
+    as ``count * per-step RDP`` when asked, so composition is exactly
+    additive: ``step(q, a); step(q, b)`` gives the same epsilon, to the
+    bit, as ``step(q, a + b)``.  That is what lets the compiled engine
+    account a whole epoch in one call and still report the stepwise
+    engine's epsilon.  (The reference adds ``count * per`` into a float
+    ledger at every call, which is not associative; the two agree exactly
+    over a few steps per rate and to the last bits beyond.)"""
 
     def __init__(self, noise_multiplier: float, delta: float = 1e-5,
                  orders=DEFAULT_ORDERS):
         self.noise_multiplier = float(noise_multiplier)
         self.delta = float(delta)
         self.orders = tuple(orders)
-        self._rdp = {o: 0.0 for o in self.orders}
         self.steps = 0
+        self._counts: dict[float, int] = {}
         self._cache: dict[float, dict] = {}
 
     def step(self, q: float, count: int = 1):
@@ -89,15 +98,22 @@ class RDPAccountant:
         if q not in self._cache:
             self._cache[q] = {o: rdp_sampled_gaussian(
                 q, self.noise_multiplier, o) for o in self.orders}
-        per = self._cache[q]
-        for o in self.orders:
-            self._rdp[o] += count * per[o]
+        self._counts[q] = self._counts.get(q, 0) + count
         self.steps += count
+
+    def rdp(self) -> dict[int, float]:
+        """The composed RDP at every order."""
+        out = {o: 0.0 for o in self.orders}
+        for q, n in self._counts.items():
+            per = self._cache[q]
+            for o in self.orders:
+                out[o] += n * per[o]
+        return out
 
     def epsilon(self) -> tuple[float, int]:
         if self.steps == 0:
             return 0.0, 0
-        return rdp_to_eps(self._rdp, self.delta)
+        return rdp_to_eps(self.rdp(), self.delta)
 
     def summary(self) -> dict:
         eps, order = self.epsilon()

@@ -37,7 +37,6 @@ import math
 import torch
 
 from repro_torch.kernels.dp_clip.ops import clip_accumulate
-from repro_torch.optim import tree_gaussian_noise
 from repro_torch.tree import tree_map
 
 CUT, DP = 1, 2              # the ``purpose`` field of ``stream_seed``
@@ -134,27 +133,40 @@ def per_example_grads(loss_fn, params, batch, extra=None):
         tree_map(single, batch), extra)
 
 
+def dp_noise_std(cfg: PrivacyConfig) -> float:
+    """The std ``sigma * C`` of the Gaussian noise on the clipped gradient
+    sum (0 without noise)."""
+    # PrivacyConfig rejects noise > 0 with clip inf (unbounded sensitivity)
+    return (float(cfg.noise_multiplier) * float(cfg.clip_norm)
+            if cfg.noise_multiplier > 0 else 0.0)
+
+
 def dp_value_and_grad(loss_fn, cfg: PrivacyConfig):
     """DP analogue of ``value_and_grad``.
 
     ``loss_fn(params, batch, extra) -> scalar``.  Returns ``fn(params,
-    batch, gen, extra=None) -> (mean loss, noisy clipped mean grad)``:
-    ``(sum_b clip(g_b) + sigma*C*z) / B`` with ``z ~ N(0, I)`` drawn from
-    ``gen`` — the standard Abadi et al. DP-SGD estimator.  The reference's
-    ``weights=`` (pad-and-mask rows of the compiled engine) is not ported:
-    the stepwise engine has no padding rows.  The clip is K5/K6
-    (``kernels/dp_clip``); the reference's ``use_kernel`` switch is not
-    ported, since a CUDA tensor always launches the kernels.
+    batch, gen=None, extra=None, noise=None) -> (mean loss, noisy clipped
+    mean grad)``: ``(sum_b clip(g_b) + sigma*C*z) / B`` with ``z ~ N(0,
+    I)`` — the standard Abadi et al. DP-SGD estimator.  The noise is
+    ``noise``, a tree of pre-scaled draws of the params' shapes
+    (``draw_noise``: the compiled engine fills it outside its captured
+    step), or else drawn here from ``gen``; the same generator gives the
+    same noise either way.  The reference's ``weights=`` (pad-and-mask
+    rows) is not needed: privacy runs on SFLv3/v1 only, which have no
+    remainder batch.  The clip is K5/K6 (``kernels/dp_clip``); the
+    reference's ``use_kernel`` switch is not ported, since a CUDA tensor
+    always launches the kernels.
     """
-    # PrivacyConfig rejects noise > 0 with clip inf (unbounded sensitivity)
-    noise_std = float(cfg.noise_multiplier) * float(cfg.clip_norm) \
-        if cfg.noise_multiplier > 0 else 0.0
+    noise_std = dp_noise_std(cfg)
 
-    def fn(params, batch, gen, extra=None):
+    def fn(params, batch, gen=None, extra=None, noise=None):
         losses, grads = per_example_grads(loss_fn, params, batch, extra)
         b = losses.shape[0]
         summed, _ = clip_accumulate(grads, float(cfg.clip_norm))
-        summed = tree_gaussian_noise(summed, gen, noise_std)
+        if noise is None and noise_std > 0:
+            noise = draw_noise(params, gen, noise_std)
+        if noise is not None:
+            summed = tree_map(lambda s, z: s + z.to(s.dtype), summed, noise)
         grad = tree_map(lambda s, p: (s / b).to(p.dtype), summed, params)
         return losses.mean(), grad
 
@@ -172,22 +184,45 @@ def _leaf_noise(l, gen: torch.Generator, std: float):
     return std * torch.randn(l.shape, generator=gen, device=gen.device)
 
 
-def draw_cut_noise(tree, gen: torch.Generator, std: float):
-    """Pre-scaled noise for every leaf of a boundary tree (real or meta
-    tensors), drawn in leaf order from ``gen``."""
+def draw_noise(tree, gen: torch.Generator, std: float):
+    """Pre-scaled noise for every leaf of a tree (a boundary's or the
+    params', real or meta tensors), drawn in leaf order from ``gen``."""
     return tree_map(lambda l: _leaf_noise(l, gen, std), tree)
+
+
+def step_draws(cfg: PrivacyConfig, step: int, n_clients: int, cut_spec,
+               dp_specs, device) -> list:
+    """Every hospital's noise for one SFLv3 step, ``step`` the running
+    index that seeds the streams: per hospital ``{"cut": draws of
+    cut_spec's shapes or None, "dp": draws of dp_specs[c]'s shapes or
+    None}`` (``dp_specs[c]``: the ``{"c": client tree, "s": server}`` the
+    DP step differentiates).  The stepwise engine draws them before its
+    step, the compiled engine into its static buffers before a replay."""
+    dp_std = dp_noise_std(cfg) if cfg.dp_enabled else 0.0
+    out = []
+    for c in range(n_clients):
+        d = {"cut": None, "dp": None}
+        if cfg.cut_noise_std > 0:
+            d["cut"] = draw_noise(
+                cut_spec, make_generator(cfg, step, c, CUT, device),
+                cfg.cut_noise_std)
+        if dp_std > 0:
+            d["dp"] = draw_noise(
+                dp_specs[c], make_generator(cfg, step, c, DP, device), dp_std)
+        out.append(d)
+    return out
 
 
 def cut_noise_boundary(base_boundary, codec=None):
     """Wrap a transport boundary fn with additive Gaussian cut-layer noise.
 
     Returns ``fn(tree, noise)``, ``noise`` the tree of pre-scaled draws
-    (``draw_cut_noise``); the noise rides AFTER the codec roundtrip — the
+    (``draw_noise``); the noise rides AFTER the codec roundtrip — the
     client adds it to exactly what ships (the reference draws inside and
     takes the std here; the port's draws come pre-scaled because ``vmap``
     refuses random ops).  The reference's ``weights`` (pad-and-mask rows of
-    the compiled engine) are not ported: the stepwise engine has no padding
-    rows.
+    the compiled engine) are not ported: privacy runs on SFLv3/v1 only,
+    whose batches are never padded (ROADMAP M8).
 
     With a fusable ``codec`` (``Int8Codec``) the roundtrip AND the add are
     ONE K4 launch per leaf, in the same f32 op order as the unfused
@@ -219,6 +254,6 @@ def boundary_with_key(base_boundary, cfg: PrivacyConfig | None, gen,
     noised = cut_noise_boundary(base_boundary, codec)
 
     def fn(tree):
-        return noised(tree, draw_cut_noise(tree, gen, cfg.cut_noise_std))
+        return noised(tree, draw_noise(tree, gen, cfg.cut_noise_std))
 
     return fn

@@ -219,7 +219,7 @@ def test_privacy_report_equals_repro_epsilon(tiny):
                        privacy=PrivacyConfig(noise_multiplier=1.0,
                                              clip_norm=1.0,
                                              cut_noise_std=0.3),
-                       device="cpu")
+                       engine="stepwise", device="cpu")
     state, log = st.run_epoch(st.setup(0), data, np.random.default_rng(0), 2)
     assert np.isfinite(log.losses).all()
     rj, rt = sj.privacy_report(), st.privacy_report()

@@ -69,7 +69,8 @@ def _epochs(clients, codec, j_cfg, t_cfg):
     st = make_strategy("sflv3_ac", cnn_adapter(build_densenet(t_cfg)),
                        lambda: TO.adam(LR), N_CLIENTS,
                        transport=Transport(codec, device="cpu"),
-                       privacy=PrivacyConfig(**PRIV), device="cpu")
+                       privacy=PrivacyConfig(**PRIV), engine="stepwise",
+                       device="cpu")
     state_t, log_t = st.run_epoch(sflv3_state_from_jax(start, "cpu"),
                                   [c.train for c in clients],
                                   np.random.default_rng(1), BATCH)

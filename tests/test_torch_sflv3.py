@@ -89,7 +89,7 @@ def _port_epoch(ref, clients, codec, fuse):
     ta = cnn_adapter(build_densenet(DENSENET_MINI))
     tt = Transport(codec, fuse=fuse, device="cpu")
     st = make_strategy("sflv3_ac", ta, lambda: TO.adam(LR), N_CLIENTS,
-                       transport=tt, device="cpu")
+                       transport=tt, engine="stepwise", device="cpu")
     state_t = sflv3_state_from_jax(ref["start"], "cpu")
     state_t, log_t = st.run_epoch(state_t, [c.train for c in clients],
                                   np.random.default_rng(1), BATCH)
@@ -250,12 +250,18 @@ def test_port_setup_has_the_reference_layout(runs):
     assert mine["s_opt"]["step"] == 0 and len(mine["c_opts"]) == N_CLIENTS
 
 
+# precision="bf16" (M4) and engine="compiled" (M6) are ported now: their
+# two cases keep their ids and check the options that still raise on
+# those paths, a custom aggregator under bf16 and cut noise on SFLv2 on
+# the compiled engine
 @pytest.mark.parametrize("kw, item", [
-    (dict(precision="bf16"), "M4"),
+    pytest.param(dict(precision="bf16", method="fl", aggregator=object()),
+                 "M9", id="kw0-M4"),
     (dict(observe=True), "M10"),
     (dict(shard=True), "M11"),
     (dict(participation=object()), "M9"),
-    (dict(engine="compiled"), "M6"),
+    pytest.param(dict(engine="compiled", method="sflv2_ac",
+                      privacy=dict(cut_noise_std=0.5)), "M8", id="kw4-M6"),
     (dict(method="fl", privacy=dict(noise_multiplier=1.0, clip_norm=1.0)),
      "M8"),
     (dict(method="sl_ac", nls=True,

@@ -1,6 +1,7 @@
-"""Shared by the grid tests (``tests/test_torch_grid*.py``): one row of the
-paper's Table-2 grid run by the JAX reference and by the port on the CPU,
-both on the stepwise engine, from the same weights (the reference's
+"""Shared by the grid tests (``tests/test_torch_grid*.py``,
+``tests/test_torch_engine_ref.py``): one row of the paper's Table-2 grid
+run by the JAX reference and by the port on the CPU, both on the same
+engine (stepwise unless asked), from the same weights (the reference's
 ``setup``, converted by ``repro_torch.interop``) and the same numpy batch
 order (one ``default_rng`` seed on each side).
 """
@@ -72,20 +73,20 @@ def port_state(method: str, start):
 
 
 def run_pair(method, nls, arch, clients, batch, lr, codec=None, epochs=1,
-             privacy=(None, None), **kw):
+             privacy=(None, None), engine="stepwise", **kw):
     """``epochs`` epochs of one row in both packages over ``codec`` (None:
-    no transport), one per hospital of ``clients``; ``privacy`` is the
-    (reference, port) pair of ``PrivacyConfig``s.  Returns a dict with the
-    strategies, the state after each epoch (``states_j``/``states_t``),
-    the logs and transports."""
+    no transport), one per hospital of ``clients``, on ``engine`` in both;
+    ``privacy`` is the (reference, port) pair of ``PrivacyConfig``s.
+    Returns a dict with the strategies, the state after each epoch
+    (``states_j``/``states_t``), the logs and transports."""
     ja, ta = adapters(arch, nls)
     n = len(clients)
     tj = None if codec is None else JTransport(codec)
     tt = None if codec is None else Transport(codec, device="cpu")
     sj = j_make_strategy(method, ja, lambda: JO.adam(lr), n, transport=tj,
-                         engine="stepwise", privacy=privacy[0], **kw)
+                         engine=engine, privacy=privacy[0], **kw)
     st = make_strategy(method, ta, lambda: TO.adam(lr), n, transport=tt,
-                       device="cpu", privacy=privacy[1], **kw)
+                       engine=engine, device="cpu", privacy=privacy[1], **kw)
     state_j = sj.setup(jax.random.key(0))
     state_t = port_state(method, jax.tree.map(np.asarray, state_j))
     data = [c.train for c in clients]

@@ -7,9 +7,11 @@ and records the per-epoch wall time (Table 3), the analytic communication
 
     PYTHONPATH=src python tools/repro_tables_torch.py --out DIR [--quick]
         [--arch densenet-mini|unet-mini] [--device cpu|cuda]
+        [--engine compiled|stepwise] [--precision fp32|bf16]
 
 Writes ``DIR/repro_{arch}.json``, one record per row and seed, each naming
-the device it ran on.  The default device is the CUDA card.
+the device, engine and precision it ran on.  The default device is the
+CUDA card, the default engine the compiled one (as ``make_strategy``'s).
 """
 
 from __future__ import annotations
@@ -78,12 +80,13 @@ _CACHE: dict = {}       # strategies and FLOP counts, reused across seeds
 
 
 def run_method(label, method, nls, arch, clients, epochs, batch_size, lr,
-               device, seed=0):
+               device, seed=0, engine="compiled", precision="fp32"):
     """One row: train, select by validation loss, evaluate, account."""
     key = (label, arch, batch_size)
     if key not in _CACHE:
         _CACHE[key] = make_strategy(method, build_model(arch, nls),
                                     lambda: O.adam(lr), len(clients),
+                                    engine=engine, precision=precision,
                                     device=device)
     strat = _CACHE[key]
     adapter = strat.adapter
@@ -140,12 +143,16 @@ def main():
     ap.add_argument("--seeds", type=int, default=3)
     ap.add_argument("--arch", default=None, choices=list(PLANS))
     ap.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
+    ap.add_argument("--engine", default="compiled",
+                    choices=["compiled", "stepwise"])
+    ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"])
     ap.add_argument("--out", required=True)
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
     device = resolve_device(args.device)
     where = device_label(device)
-    print(f"device: {where}", flush=True)
+    print(f"device: {where}, engine {args.engine}, precision "
+          f"{args.precision}", flush=True)
 
     # unequal hospital volumes, like the paper's 3772/1150/1816/880/1090
     sizes = [40, 16, 24, 16, 24] if args.quick else [160, 80, 120, 64, 96]
@@ -168,8 +175,10 @@ def main():
                 print(f"== {arch} {label} seed{seed}", flush=True)
                 t0 = time.perf_counter()
                 rec = run_method(label, method, nls, arch, clients, epochs,
-                                 plan["batch"], plan["lr"], device, seed)
-                rec.update(seed=seed, device=where,
+                                 plan["batch"], plan["lr"], device, seed,
+                                 args.engine, args.precision)
+                rec.update(seed=seed, device=where, engine=args.engine,
+                           precision=args.precision,
                            wall_s=round(time.perf_counter() - t0, 1))
                 results.append(rec)
                 print(f"   -> auroc={rec['auroc']} auprc={rec['auprc']} "
