@@ -10,8 +10,11 @@ Phases, in order; any failure exits nonzero before the last line:
      (fused roundtrip + cut noise, masked and unmasked) bit for bit against
      their plain PyTorch versions on the card, in f32 and bf16, at the main
      path's shape (250,880 x 160) and a ragged one (7 x 96), check K3 ==
-     K2(K1(x)) and K4 == K3 + the masked add, and K3 once more at the
-     U-Net's widest boundary leaf (5,898,240 x 64 f32) and past 2^31
+     K2(K1(x)) and K4 == K3 + the masked add; K1 also on each of its paths
+     (the vector path at D = 160, 64, 576, 728, the general path at D = 1,
+     3, 33, 161 and on a misaligned view), on all-zero rows and on rows of
+     exact .5 ties; K3 in f32 and K2-K4 in bf16 once more at the U-Net's
+     widest boundary leaf (5,898,240 x 64), and K3 and K1 past 2^31
      elements (33,554,440 x 64 bf16: row offsets that only 64-bit
      arithmetic forms); hold K5
      (per-example squared norms) and K6 (scaled batch sum) within 1e-6
@@ -26,7 +29,8 @@ Phases, in order; any failure exits nonzero before the last line:
      rows too) and at the scoring shape (4 x 16 chunks x 128 x 24 heads x
      64, state 128) under two dt ranges; time each with CUDA events beside
      its bound and, for K5-K7, one PyTorch call (K7: SDPA); K1-K4 are
-     timed on bf16 rows too;
+     timed on bf16 rows too, K1 also at the U-Net's leaf in both dtypes
+     and as bare launches (outputs allocated once) beside its wrapper;
   4. train SplitFedv3 (``sflv3_ac``) on DenseNet-121-mini at 32^2 on the
      card and on the CPU from the same start, and hold the card's losses
      and scores against the CPU's plain path over an identity link (the
@@ -76,7 +80,8 @@ Phases, in order; any failure exits nonzero before the last line:
      the graph's own buffers, the wire bytes equal to ``comm_per_epoch``'s
      train legs, ``evaluate``, and both engines' step seconds and peaks;
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
-     bf16 rows), then the last line ``{"ok": true, "device": {...}}``.
+     bf16 rows and ``unet_leaf`` entries, K1 with ``bare_ms``), then the
+     last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  ``--profile`` adds one profiled fused
 step of each main path, of the U-Net's SFLv3 and SL-AM (LS) in phase 8,
@@ -107,8 +112,12 @@ MAIN_ROWS, MAIN_D = 80 * 56 * 56, 160   # the cut tensor of 5 x 16 images
 # hospitals x 2 images
 UNET_SIZE, UNET_BATCH = 768, 2
 UNET_ROWS, UNET_D = 5 * UNET_BATCH * UNET_SIZE ** 2, 64
-# K3 past 2^31 elements (bf16, 4.3 GB): row * D overflows 32 bits
+# K3 and K1 past 2^31 elements (bf16, 4.3 GB): row * D overflows 32 bits
 WIDE_ROWS = 2 ** 31 // UNET_D + 8
+# K1's checked widths: its vector path at the main path's and the U-Net's
+# leaves, its general path at ragged widths
+K1_VECTOR_D = (160, 64, 576, 728)
+K1_GENERAL_D = (1, 3, 33, 161)
 # operations per element of each kernel: K1 abs, max, divide, round, clamp;
 # K2 convert, multiply; K3 both; K4 K3's and the noise multiply and add;
 # K5 multiply, add; K6 multiply, add
@@ -237,9 +246,6 @@ def check_kernels(dev):
     q, s = AC.quantize_rows(x)
     n, t = x.numel(), MAIN_ROWS
     rows = [
-        ("K1", "cut_quantize", "src/repro/kernels/act_compress/"
-         "act_compress.py:37", lambda: AC.quantize_rows(x),
-         lambda: R.quantize_ref(x), 4 * n, n + 4 * t),
         ("K2", "cut_dequantize", "src/repro/kernels/act_compress/"
          "act_compress.py:57", lambda: AC.dequantize_rows(q, s, x.dtype),
          lambda: R.dequantize_ref(q, s, x.dtype), n + 4 * t, 4 * n),
@@ -264,8 +270,6 @@ def check_kernels(dev):
          * 3).to(torch.bfloat16)
     q, s = AC.quantize_rows(x)
     rows = [
-        ("K1", lambda: AC.quantize_rows(x), lambda: R.quantize_ref(x),
-         2 * n, n + 4 * t),
         ("K2", lambda: AC.dequantize_rows(q, s, x.dtype),
          lambda: R.dequantize_ref(q, s, x.dtype), n + 4 * t, 2 * n),
         ("K3", lambda: CF.roundtrip_rows(x), lambda: R.roundtrip_ref(x),
@@ -282,10 +286,145 @@ def check_kernels(dev):
                                            "bound_by")} | {
             "shape": [t, MAIN_D]}
     del x, z, w, q, s
+    table = {"K1": check_k1(dev, gen, err["K1"])} | table
     table["K3"]["unet_leaf"] = check_k3_unet_leaf(dev, gen)
-    check_k3_past_2_31(dev, gen)
+    unet_leaf_bf16(dev, gen, table)
+    check_past_2_31(dev, gen)
     table.update(check_dp_clip(dev, gen))
     return table
+
+
+def k1_path(x) -> str:
+    """The path K1 takes for the rows ``x`` into a fresh (aligned) q."""
+    from repro_torch.kernels.act_compress import act_compress as AC
+
+    plan = AC.quantize_plan(x.shape[1], x.dtype, x.data_ptr(), 0)
+    return "general" if plan is None else "vector (group %d, vecs %d)" % plan
+
+
+def k1_equals_plain(x, q, s) -> bool:
+    """K1's ``q`` and ``s`` of the rows ``x`` bit-equal to the plain
+    version's, taken over 2^26 elements of rows at a time (the quantize is
+    row-wise, so the cut is exact)."""
+    import torch
+    from repro_torch.kernels.act_compress import ref as R
+
+    step = max(1, 2 ** 26 // x.shape[1])
+    for i in range(0, len(x), step):
+        q_r, s_r = R.quantize_ref(x[i:i + step])
+        if not (torch.equal(q[i:i + step], q_r)
+                and torch.equal(s[i:i + step], s_r)):
+            return False
+    return True
+
+
+def k1_tie_rows(dev, gen, rows, d, dt):
+    """Rows whose every x / scale is an exact .5 tie but one: each row
+    holds one +-127 * 2^e (so that its scale is exactly 2^e, with e from -4
+    to 4) and otherwise (k + 0.5) * 2^e for k drawn in [-127, 126], all
+    exact in f32 and in bf16 (at most 8 significant bits)."""
+    import torch
+
+    k = torch.randint(-127, 127, (rows, d), device=dev, generator=gen)
+    v = k.float() + 0.5
+    v[:, 0] = torch.where(torch.rand(rows, device=dev, generator=gen) < 0.5,
+                          -127.0, 127.0)
+    e = (torch.arange(rows, device=dev) % 9 - 4).float()
+    return (v * torch.exp2(e)[:, None]).to(dt)
+
+
+def check_k1(dev, gen, err):
+    """K1 bit-equal to its plain version on every path of its design, then
+    timed at the main path's shape and at the U-Net's widest leaf, in f32
+    and bf16, as wrapper calls and as bare launches (outputs allocated once,
+    QUANTIZE alone); returns K1's row of the kernels line."""
+    import torch
+    from repro_torch.kernels.act_compress import act_compress as AC
+    from repro_torch.kernels.act_compress import ref as R
+
+    rows = 4099          # a multiple of no block's rows
+    zero_scale = (torch.tensor(R.MIN_AMAX, dtype=torch.float32)
+                  * R.INV_127).item()
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for d in K1_VECTOR_D + K1_GENERAL_D:
+            x = (torch.randn((rows, d), device=dev, generator=gen) * 3).to(dt)
+            want = "vector" if d in K1_VECTOR_D else "general"
+            cases.append((f"D {d}", x, want))
+        # a contiguous view one element past an allocation's start
+        x = torch.empty(rows * 160 + 1, device=dev, dtype=dt)[1:].view(
+            rows, 160)
+        x.copy_(torch.randn((rows, 160), device=dev, generator=gen) * 3)
+        cases.append(("D 160, misaligned view", x, "general"))
+        for d in (160, 728, 161):
+            x = (torch.randn((rows, d), device=dev, generator=gen) * 3).to(dt)
+            x[::3] = 0
+            cases.append((f"D {d}, every third row zero", x, None))
+            cases.append((f"D {d}, .5 ties", k1_tie_rows(dev, gen, rows, d,
+                                                          dt), None))
+    for label, x, want in cases:
+        path = k1_path(x)
+        q, s = AC.quantize_rows(x)
+        ok = k1_equals_plain(x, q, s)
+        torch.cuda.synchronize()
+        if "zero" in label:
+            ok = ok and bool((s[::3] == zero_scale).all()) and not bool(
+                q[::3].any())
+        if "ties" in label:
+            # the case is what it says: nearly every x / scale is a tie
+            r = x.float() / s
+            ties = float(((r - r.floor()) == 0.5).float().mean())
+            ok = ok and ties > 0.9
+            label += f" ({100 * ties:.1f}% ties)"
+        log(f"  K1 {str(x.dtype)[6:]} {label}, {path}: {ok}")
+        if not ok or (want and not path.startswith(want)):
+            fail(f"K1 at {label} {x.dtype}: bit-equal {ok}, path {path} "
+                 f"(want {want})")
+
+    row = None
+    for label, t, d in [("main", MAIN_ROWS, MAIN_D),
+                        ("unet_leaf", UNET_ROWS, UNET_D)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn((t, d), device=dev, generator=gen) * 3).to(dt)
+            q, s = AC.quantize_rows(x)
+            ok = k1_equals_plain(x, q, s)
+            if not ok:
+                fail(f"K1 disagrees with its plain version at {t} x {d} {dt}")
+            args = AC.quantize_args(x, q, s)
+            n = x.numel()
+            b_ms, b_by = bound("K1", t, d, x.element_size() * n, n + 4 * t)
+            p0, w0 = cuda_ms(lambda: R.quantize_ref(x)), cuda_ms(
+                lambda: AC.quantize_rows(x))
+            k0 = cuda_ms(lambda: AC.QUANTIZE(*args))
+            k1 = cuda_ms(lambda: AC.QUANTIZE(*args))
+            w1, p1 = cuda_ms(lambda: AC.quantize_rows(x)), cuda_ms(
+                lambda: R.quantize_ref(x))
+            entry = {"ms": (w0 + w1) / 2, "bare_ms": (k0 + k1) / 2,
+                     "plain_ms": (p0 + p1) / 2, "bound_ms": b_ms,
+                     "bound_by": b_by, "shape": [t, d]}
+            log(f"  K1 cut_quantize {k1_path(x)}: bare {entry['bare_ms']:.4f}"
+                f" ms ({k0:.4f}, {k1:.4f}; {100 * b_ms / entry['bare_ms']:.1f}"
+                f"% of the bound), wrapper {entry['ms']:.4f} ms ({w0:.4f}, "
+                f"{w1:.4f}), plain {entry['plain_ms']:.4f} ms ({p0:.4f}, "
+                f"{p1:.4f}), bound {b_ms:.4f} ms by {b_by} at {t} x {d} "
+                f"{str(dt)[6:]}")
+            del x, q, s
+            if row is None:
+                row = {"name": "cut_quantize", "route": "cuda",
+                       "source": CUDA_SRC + "cut_layer.cu",
+                       "replaces": "src/repro/kernels/act_compress/"
+                                   "act_compress.py:37",
+                       "launches": 0, "max_abs_err": err} | entry | {
+                           "library_ms": None, "redesigned": "PR 19"}
+                row.pop("shape")
+            elif label == "main":
+                row["bf16"] = entry
+            elif dt == torch.float32:
+                row["unet_leaf"] = entry
+            else:
+                row["unet_leaf"]["bf16"] = entry
+    torch.cuda.empty_cache()
+    return row
 
 
 def k3_equals_plain(x, out) -> bool:
@@ -333,21 +472,68 @@ def check_k3_unet_leaf(dev, gen):
         "shape": [UNET_ROWS, UNET_D]}
 
 
-def check_k3_past_2_31(dev, gen):
-    """K3 on WIDE_ROWS x 64 bf16, 2^31 + 512 elements: the last rows start
-    past 2^31 elements, where a 32-bit row * D would wrap; bit-equal to
-    its plain version in every row (not timed)."""
+def unet_leaf_bf16(dev, gen, table):
+    """K2, K3 and K4 at the U-Net's widest leaf in bf16 (UNET_ROWS x 64):
+    bit-equal to their plain versions, then timed like the rows above;
+    each row of ``table`` gains ``unet_leaf["bf16"]``."""
     import torch
+    from repro_torch.kernels.act_compress import act_compress as AC
+    from repro_torch.kernels.act_compress import ref as R
+    from repro_torch.kernels.cut_fuse import cut_fuse as CF
+    from repro_torch.kernels.cut_fuse import ref as RF
+
+    t, d = UNET_ROWS, UNET_D
+    x = (torch.randn((t, d), device=dev, generator=gen) * 3).to(
+        torch.bfloat16)
+    z = torch.randn((t, d), device=dev, generator=gen) * 0.5
+    w = torch.ones((t, 1), device=dev)
+    q, s = AC.quantize_rows(x)
+    n = x.numel()
+    rows = [
+        ("K2", lambda: AC.dequantize_rows(q, s, x.dtype),
+         lambda: R.dequantize_ref(q, s, x.dtype), n + 4 * t, 2 * n),
+        ("K3", lambda: CF.roundtrip_rows(x), lambda: R.roundtrip_ref(x),
+         2 * n, 2 * n),
+        ("K4", lambda: CF.noise_roundtrip_rows(x, z, w),
+         lambda: RF.noise_roundtrip_ref(x, z, w), 6 * n + 4 * t, 2 * n),
+    ]
+    for key, kern, plain, nin, nout in rows:
+        out, out_r = kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, out_r):
+            fail(f"{key} disagrees with its plain version at {t} x {d} bf16")
+        e = max_err(out, out_r)
+        del out, out_r
+        row = table[key]
+        b16 = timed_row(key, row["name"], "cut_layer.cu", row["replaces"],
+                        kern, plain, None, f"{t} x {d} bf16 (the U-Net's "
+                        "widest leaf)", bound(key, t, d, nin, nout), e)
+        row.setdefault("unet_leaf", {})["bf16"] = {
+            k: b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "max_abs_err")} | {"shape": [t, d]}
+    del x, z, w, q, s
+    torch.cuda.empty_cache()
+
+
+def check_past_2_31(dev, gen):
+    """K3 and K1 on WIDE_ROWS x 64 bf16, 2^31 + 512 elements: the last rows
+    start past 2^31 elements, where a 32-bit row * D would wrap; bit-equal
+    to their plain versions in every row (not timed)."""
+    import torch
+    from repro_torch.kernels.act_compress import act_compress as AC
     from repro_torch.kernels.cut_fuse import cut_fuse as CF
 
     x = torch.randn((WIDE_ROWS, UNET_D), device=dev, generator=gen,
                     dtype=torch.bfloat16)
-    ok = k3_equals_plain(x, CF.roundtrip_rows(x))
-    log(f"  ({WIDE_ROWS}, {UNET_D}) bf16, {x.numel()} elements: K3 {ok}")
+    ok3 = k3_equals_plain(x, CF.roundtrip_rows(x))
+    torch.cuda.empty_cache()
+    ok1 = k1_equals_plain(x, *AC.quantize_rows(x))
+    log(f"  ({WIDE_ROWS}, {UNET_D}) bf16, {x.numel()} elements: K3 {ok3}, "
+        f"K1 ({k1_path(x)}) {ok1}")
     del x
     torch.cuda.empty_cache()
-    if not ok:
-        fail("K3 disagrees with its plain version past 2^31 elements")
+    if not (ok3 and ok1):
+        fail("K3 or K1 disagrees with its plain version past 2^31 elements")
 
 
 def timed_row(key, name, source, replaces, kern, plain, library, shape,

@@ -4,6 +4,13 @@ Hopper counterparts of ``quantize_pallas`` / ``dequantize_pallas``; the CUDA
 source and its design note are in ``kernels/csrc/cut_layer.cu``.  A CPU
 tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
 kernel or raises.
+
+K1 has two paths, and ``quantize_plan`` chooses one from the row width,
+the dtype and the pointers, never by a failure: the vector path (a group
+of lanes a row, 16-byte loads held in registers, x read once) for rows
+that are whole 16-byte vectors on 16-byte boundaries, up to 1,024 f32 or
+2,048 bf16 elements; the general path (one warp a row) for the others.
+K2 runs one warp a row.
 """
 
 from __future__ import annotations
@@ -18,9 +25,47 @@ from repro_torch.kernels.act_compress import ref
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 QUANTIZE = B.CudaKernel("cut_layer.cu", "cut_quantize",
-                        [_P, _P, _P, _N, _I, _I])
+                        [_P, _P, _P, _N, _I, _I, _I, _I])
 DEQUANTIZE = B.CudaKernel("cut_layer.cu", "cut_dequantize",
                           [_P, _P, _P, _N, _I, _I])
+
+#: K1's vector path loads x 16 bytes at a time and holds at most MAX_VECS
+#: such vectors of a row in each lane's registers
+VEC_BYTES, MAX_VECS = 16, 8
+
+
+def quantize_plan(d, dtype, x_ptr, q_ptr):
+    """How K1 takes rows of ``d`` elements of ``dtype`` at ``x_ptr`` into
+    int8 at ``q_ptr``: ``(group, vecs)`` for the vector path, where a group
+    of ``group`` lanes (a power of two, 1 to 32) takes a row and each lane
+    loads ``vecs`` 16-byte vectors of it; None for the general path.
+
+    The vector path needs rows that are whole vectors (``d`` a multiple
+    of 4 f32 or 8 bf16), an x on a 16-byte boundary (then every row is),
+    a q on the boundary of one vector's levels, and rows of at most 32 x
+    MAX_VECS vectors.  Of the groups that fit, it takes the one with the
+    fewest idle vector slots, then one whose groups read whole 32-byte
+    sectors, then about 4 vectors a lane, then the wider group."""
+    per = VEC_BYTES // dtype.itemsize
+    if d % per or x_ptr % VEC_BYTES or q_ptr % per:
+        return None
+    n = d // per
+    plans = [(g, -(-n // g)) for g in (1, 2, 4, 8, 16, 32)]
+    plans = [(g, v) for g, v in plans if v <= MAX_VECS]
+    if not plans:
+        return None
+    return min(plans, key=lambda p: (p[0] * p[1], p[0] < 2 <= n,
+                                     abs(p[1] - 4), -p[0]))
+
+
+def quantize_args(x, q, s):
+    """QUANTIZE's arguments for the rows ``x`` into ``q`` and ``s``: the
+    pointers, the shape, the dtype code and ``quantize_plan``'s (group,
+    vecs), with vecs 0 for the general path."""
+    t, d = x.shape
+    plan = quantize_plan(d, x.dtype, x.data_ptr(), q.data_ptr())
+    return (x.data_ptr(), q.data_ptr(), s.data_ptr(), t, d,
+            B.DTYPE_CODES[x.dtype], *(plan or (1, 0)))
 
 
 def quantize_rows(x):
@@ -32,8 +77,7 @@ def quantize_rows(x):
     q = torch.empty((t, d), dtype=torch.int8, device=x.device)
     s = torch.empty((t, 1), dtype=torch.float32, device=x.device)
     if t:
-        QUANTIZE(x.data_ptr(), q.data_ptr(), s.data_ptr(), t, d,
-                 B.DTYPE_CODES[x.dtype])
+        QUANTIZE(*quantize_args(x, q, s))
     return q, s
 
 

@@ -39,13 +39,37 @@
 // K3 moves 321 MB per step, about 96 us at 3.35 TB/s.  K4 reads x and z and
 // writes the output, 12 B per f32 element (483 MB, 0.144 ms at that shape).
 //
-// Design: one warp per row, eight rows per 256-thread block.  Lanes stride
+// Bound, and what the design does about it.  K1 moves 5 B an element in
+// f32 and 3 in bf16 for one true division and a few other f32 operations,
+// so the bytes bound it, but only if enough of them are in flight: at the
+// main path's D = 160 one warp a row with lanes striding by 32 elements
+// moved 64 B a load in bf16, read the row twice and did five elements a
+// lane, and K1 in bf16 took 95% of its f32 time on 60% of the bytes.
+// K1 therefore has its own kernels:
+//   vector path (quantize_vec_kernel): a group of G lanes takes a row, G a
+//     power of two from 1 to 32 (32 / G rows a warp) that the wrapper
+//     chooses from D and the dtype (act_compress.quantize_plan).  Each
+//     lane issues all its 16-byte loads of the row (4 f32 or 8 bf16, the
+//     group's lanes on neighbouring vectors) before it uses any, keeps
+//     them in registers for both the absmax, a G-wide shuffle reduction,
+//     and the quantize, so x is read once, and stores each vector's levels
+//     packed (4 or 8 bytes).  The group's first lane writes the scale.
+//     A block of 256 threads takes 256 / G rows, and at most 2^16 blocks
+//     walk over the rows with a grid stride.  It needs D a multiple of the
+//     vector, x 16-byte and q vector-aligned, and rows of at most 32 x 8
+//     vectors (D <= 1024 f32, 2048 bf16);
+//   general path (quantize_general_kernel): any D and alignment, one warp
+//     a row as K2-K4 (below), reading the row twice.
+// The wrapper chooses the path from the shape and the pointers; the entry
+// point refuses a plan the vector path cannot take.  Row offsets are 64-bit.
+//
+// K2-K4: one warp per row, eight rows per 256-thread block.  Lanes stride
 // over the row, so every warp load touches consecutive addresses; the row
 // max is a warp-shuffle reduction; the second pass reads the row again,
 // which the block's few KB keep in L1, so device memory sees each input
 // byte once.  D need not be a power of two or a multiple of 32: lanes past
-// the row edge simply do no work.  K3 never writes the int8.  Making the
-// loads 16 bytes wide is left for later work.
+// the row edge simply do no work.  K3 never writes the int8.  They do not
+// take K1's 16-byte groups yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,9 +112,122 @@ __device__ __forceinline__ long long warp_row() {
   return (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x / kWarp);
 }
 
+// ---- K1 ----------------------------------------------------------------
+
+constexpr int kQuantThreads = 256;
+constexpr int kMaxVecs = 8;           // act_compress.MAX_VECS
+constexpr long long kMaxQuantBlocks = 1 << 16;
+
+// The values of 16 bytes of T as floats (exact), in memory order.
 template <typename T>
-__global__ void quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                                float* __restrict__ scale, long long rows, int d) {
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void unpack(const uint4& v, float* f) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void unpack(const uint4& v, float* f) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);  // the lower address
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// Four int8 levels (the low bytes of a..d) packed in memory order.
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+__device__ __forceinline__ int level(float x, float scale) {
+  return __float2int_rn(quant_level(x, scale));
+}
+
+// The levels of one vector's values f into q at vector j of the row qr.
+__device__ __forceinline__ void store_levels(int8_t* qr, int j, const float* f,
+                                             float s, const float*) {
+  reinterpret_cast<uint32_t*>(qr)[j] =
+      pack4(level(f[0], s), level(f[1], s), level(f[2], s), level(f[3], s));
+}
+__device__ __forceinline__ void store_levels(int8_t* qr, int j, const float* f,
+                                             float s, const __nv_bfloat16*) {
+  reinterpret_cast<uint2*>(qr)[j] = make_uint2(
+      pack4(level(f[0], s), level(f[1], s), level(f[2], s), level(f[3], s)),
+      pack4(level(f[4], s), level(f[5], s), level(f[6], s), level(f[7], s)));
+}
+
+// The vector path: a group of 2^glog lanes a row, each lane holding up to
+// V 16-byte vectors of it (vector j of the row in lane j % G, slot j / G).
+template <typename T, int V>
+__global__ void __launch_bounds__(kQuantThreads)
+    quantize_vec_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                        float* __restrict__ scale, long long rows, int d,
+                        int glog) {
+  using Vec = Vec16<T>;
+  const int lane = threadIdx.x % kWarp;
+  const int gl = lane & ((1 << glog) - 1);  // the lane within its group
+  const int nvec = d / Vec::kN;
+  const long long rows_per_warp = kWarp >> glog;
+  const long long warps = (long long)gridDim.x * (kQuantThreads / kWarp);
+  // every lane of a warp runs the same iterations (the shuffles need all)
+  for (long long w = (long long)blockIdx.x * (kQuantThreads / kWarp) +
+                     threadIdx.x / kWarp;
+       w * rows_per_warp < rows; w += warps) {
+    const long long row = w * rows_per_warp + (lane >> glog);
+    const bool live = row < rows;
+    const uint4* xr =
+        reinterpret_cast<const uint4*>(x + (live ? row : 0) * d);
+    uint4 v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {  // all loads before the first use
+      const int j = gl + (k << glog);
+      v[k] = (live && j < nvec) ? __ldg(xr + j) : make_uint4(0, 0, 0, 0);
+    }
+    float amax = 0.f;  // a zero vector leaves it as it is
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      float f[Vec::kN];
+      Vec::unpack(v[k], f);
+#pragma unroll
+      for (int e = 0; e < Vec::kN; ++e) amax = fmaxf(amax, fabsf(f[e]));
+    }
+    for (int off = (1 << glog) >> 1; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float s = __fmul_rn(fmaxf(amax, kMinAmax), kInv127);
+    if (!live) continue;
+    int8_t* qr = q + row * d;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = gl + (k << glog);
+      if (j < nvec) {
+        float f[Vec::kN];
+        Vec::unpack(v[k], f);
+        store_levels(qr, j, f, s, x);
+      }
+    }
+    if (gl == 0) scale[row] = s;
+  }
+}
+
+// The general path: one warp a row, any D and alignment, the row read twice.
+template <typename T>
+__global__ void quantize_general_kernel(const T* __restrict__ x,
+                                        int8_t* __restrict__ q,
+                                        float* __restrict__ scale,
+                                        long long rows, int d) {
   const long long row = warp_row();
   if (row >= rows) return;  // the whole warp leaves together
   const int lane = threadIdx.x % kWarp;
@@ -162,6 +299,48 @@ dim3 grid_for(long long rows) {
 
 constexpr int kThreads = kWarp * kRowsPerBlock;
 
+template <typename T, int V>
+void launch_vec(const void* x, void* q, void* scale, long long rows, int d,
+                int glog, cudaStream_t st) {
+  const long long rows_per_block = (long long)kQuantThreads >> glog;
+  long long blocks = (rows + rows_per_block - 1) / rows_per_block;
+  if (blocks > kMaxQuantBlocks) blocks = kMaxQuantBlocks;
+  quantize_vec_kernel<T, V><<<static_cast<unsigned>(blocks), kQuantThreads,
+                              0, st>>>(
+      static_cast<const T*>(x), static_cast<int8_t*>(q),
+      static_cast<float*>(scale), rows, d, glog);
+}
+
+template <typename T>
+int quantize_as(const void* x, void* q, void* scale, long long rows, int d,
+                int group, int vecs, cudaStream_t st) {
+  if (vecs == 0) {  // the general path
+    quantize_general_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<int8_t*>(q),
+        static_cast<float*>(scale), rows, d);
+    return cudaGetLastError();
+  }
+  constexpr int kN = Vec16<T>::kN;
+  int glog = 0;
+  while ((1 << glog) < group) ++glog;
+  if ((1 << glog) != group || group > kWarp || vecs < 0 || vecs > kMaxVecs ||
+      d % kN || d / kN > group * vecs ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(q) % kN)
+    return cudaErrorInvalidValue;  // a plan the vector path cannot take
+  switch (vecs) {
+    case 1: launch_vec<T, 1>(x, q, scale, rows, d, glog, st); break;
+    case 2: launch_vec<T, 2>(x, q, scale, rows, d, glog, st); break;
+    case 3: launch_vec<T, 3>(x, q, scale, rows, d, glog, st); break;
+    case 4: launch_vec<T, 4>(x, q, scale, rows, d, glog, st); break;
+    case 5: launch_vec<T, 5>(x, q, scale, rows, d, glog, st); break;
+    case 6: launch_vec<T, 6>(x, q, scale, rows, d, glog, st); break;
+    case 7: launch_vec<T, 7>(x, q, scale, rows, d, glog, st); break;
+    default: launch_vec<T, 8>(x, q, scale, rows, d, glog, st); break;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError():
@@ -169,20 +348,16 @@ constexpr int kThreads = kWarp * kRowsPerBlock;
 // code returns cudaErrorInvalidValue without launching).
 extern "C" {
 
+// K1.  group, vecs: the vector path's plan (act_compress.quantize_plan), or
+// vecs = 0 for the general path.
 int cut_quantize(const void* x, void* q, void* scale, long long rows, int d,
-                 int dtype, void* stream) {
+                 int dtype, int group, int vecs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    quantize_kernel<float><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scale), rows, d);
-  else if (dtype == kBF16)
-    quantize_kernel<__nv_bfloat16><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scale), rows, d);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return quantize_as<float>(x, q, scale, rows, d, group, vecs, st);
+  if (dtype == kBF16)
+    return quantize_as<__nv_bfloat16>(x, q, scale, rows, d, group, vecs, st);
+  return cudaErrorInvalidValue;
 }
 
 int cut_dequantize(const void* q, const void* scale, void* out, long long rows,
