@@ -10,13 +10,15 @@ Phases, in order; any failure exits nonzero before the last line:
      (fused roundtrip + cut noise, masked and unmasked) bit for bit against
      their plain PyTorch versions on the card, in f32 and bf16, at the main
      path's shape (250,880 x 160) and a ragged one (7 x 96), check K3 ==
-     K2(K1(x)) and K4 == K3 + the masked add; K1 also on each of its paths
-     (the vector path at D = 160, 64, 576, 728, the general path at D = 1,
-     3, 33, 161 and on a misaligned view), on all-zero rows and on rows of
-     exact .5 ties; K3 in f32 and K2-K4 in bf16 once more at the U-Net's
-     widest boundary leaf (5,898,240 x 64), and K3 and K1 past 2^31
-     elements (33,554,440 x 64 bf16: row offsets that only 64-bit
-     arithmetic forms); hold K5
+     K2(K1(x)) and K4 == K3 + the masked add; K1, K3 and K4 also on each
+     path of their row groups (the vector path at every width the main
+     path hands them, D = 160, 64, 128, 256, 512, 576, 728, 768, the
+     general path at D = 1, 3, 33, 161 and on a misaligned view, K4 also
+     on a misaligned z), on rows with every third row zero and on rows of
+     exact .5 ties, K4 under row weights of ones, 0/1 and fractions; K2 in
+     bf16 once more at the U-Net's widest boundary leaf (5,898,240 x 64),
+     and K1, K3 and K4 past 2^31 elements (33,554,440 x 64 bf16: row
+     offsets that only 64-bit arithmetic forms); hold K5
      (per-example squared norms) and K6 (scaled batch sum) within 1e-6
      relative of the same sums taken in double, over one hospital's real
      364-leaf per-example gradient table (16 x 6,948,609 f32) and a ragged
@@ -29,8 +31,9 @@ Phases, in order; any failure exits nonzero before the last line:
      rows too) and at the scoring shape (4 x 16 chunks x 128 x 24 heads x
      64, state 128) under two dt ranges; time each with CUDA events beside
      its bound and, for K5-K7, one PyTorch call (K7: SDPA); K1-K4 are
-     timed on bf16 rows too, K1 also at the U-Net's leaf in both dtypes
-     and as bare launches (outputs allocated once) beside its wrapper;
+     timed on bf16 rows too, K1, K3 and K4 also at the U-Net's leaf in
+     both dtypes and as bare launches (outputs allocated once) beside
+     their wrappers, K4 also at one hospital's 50,176 x 160 f32 rows;
   4. train SplitFedv3 (``sflv3_ac``) on DenseNet-121-mini at 32^2 on the
      card and on the CPU from the same start, and hold the card's losses
      and scores against the CPU's plain path over an identity link (the
@@ -64,7 +67,8 @@ Phases, in order; any failure exits nonzero before the last line:
      fused int8 link: per run the step seconds, step-1 losses, K1-K3
      launches (K3 exactly once per boundary leaf, crossing and step), K3's
      output at every leaf of the first step bit-equal to its plain
-     version on the same rows, the transport's bytes (exactly ``comm_per_epoch``'s train legs), the
+     version on the same rows and taken on its vector path, the
+     transport's bytes (exactly ``comm_per_epoch``'s train legs), the
      client sync (SFLv2/v1 one tree, SL/SFLv3 distinct) and ``evaluate``;
   9. the compiled engine (``core/strategies/engine.py``: one captured CUDA
      graph per program, replayed) against the stepwise engine from the
@@ -80,8 +84,9 @@ Phases, in order; any failure exits nonzero before the last line:
      the graph's own buffers, the wire bytes equal to ``comm_per_epoch``'s
      train legs, ``evaluate``, and both engines' step seconds and peaks;
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
-     bf16 rows and ``unet_leaf`` entries, K1 with ``bare_ms``), then the
-     last line ``{"ok": true, "device": {...}}``.
+     bf16 rows and ``unet_leaf`` entries, K1, K3 and K4 with ``bare_ms``,
+     K4 with ``one_hospital``), then the last line ``{"ok": true,
+     "device": {...}}``.
 
 Each phase prints its wall time.  ``--profile`` adds one profiled fused
 step of each main path, of the U-Net's SFLv3 and SL-AM (LS) in phase 8,
@@ -112,12 +117,16 @@ MAIN_ROWS, MAIN_D = 80 * 56 * 56, 160   # the cut tensor of 5 x 16 images
 # hospitals x 2 images
 UNET_SIZE, UNET_BATCH = 768, 2
 UNET_ROWS, UNET_D = 5 * UNET_BATCH * UNET_SIZE ** 2, 64
-# K3 and K1 past 2^31 elements (bf16, 4.3 GB): row * D overflows 32 bits
+# K1, K3 and K4 past 2^31 elements (bf16, 4.3 GB): row * D overflows 32
+# bits
 WIDE_ROWS = 2 ** 31 // UNET_D + 8
-# K1's checked widths: its vector path at the main path's and the U-Net's
-# leaves, its general path at ragged widths
-K1_VECTOR_D = (160, 64, 576, 728)
-K1_GENERAL_D = (1, 3, 33, 161)
+# the row kernels' (K1, K3, K4) checked widths: their vector path at every
+# width the main path hands them (DenseNet's cut, the U-Net's leaves, the
+# SmolLM and Mamba2 links of phase 7), their general path at ragged widths
+VECTOR_D = (160, 64, 128, 256, 512, 576, 728, 768)
+GENERAL_D = (1, 3, 33, 161)
+# K4's launch on the private step: one hospital's 16 x 56 x 56 cut rows
+HOSPITAL_ROWS = 16 * 56 * 56
 # operations per element of each kernel: K1 abs, max, divide, round, clamp;
 # K2 convert, multiply; K3 both; K4 K3's and the noise multiply and add;
 # K5 multiply, add; K6 multiply, add
@@ -238,68 +247,66 @@ def check_kernels(dev):
                 fail(f"kernel disagrees with its plain version at {shape} "
                      f"{dt}")
 
-    # time at the main path's shape and dtype (f32): 160 MB in, so every
-    # launch finds its input outside the 50 MB L2
+    # time K2 at the main path's shape and dtype (f32): 160 MB in, so every
+    # launch finds its input outside the 50 MB L2; K1, K3 and K4 are timed
+    # as bare launches beside their wrappers below
     x = torch.randn((MAIN_ROWS, MAIN_D), device=dev, generator=gen) * 3
-    z = torch.randn((MAIN_ROWS, MAIN_D), device=dev, generator=gen) * 0.5
-    w = torch.ones((MAIN_ROWS, 1), device=dev)
     q, s = AC.quantize_rows(x)
     n, t = x.numel(), MAIN_ROWS
-    rows = [
-        ("K2", "cut_dequantize", "src/repro/kernels/act_compress/"
-         "act_compress.py:57", lambda: AC.dequantize_rows(q, s, x.dtype),
-         lambda: R.dequantize_ref(q, s, x.dtype), n + 4 * t, 4 * n),
-        ("K3", "cut_roundtrip", "src/repro/kernels/cut_fuse/cut_fuse.py:80",
-         lambda: CF.roundtrip_rows(x), lambda: R.roundtrip_ref(x),
-         4 * n, 4 * n),
-        ("K4", "cut_noise_roundtrip",
-         "src/repro/kernels/cut_fuse/cut_fuse.py:98",
-         lambda: CF.noise_roundtrip_rows(x, z, w),
-         lambda: RF.noise_roundtrip_ref(x, z, w), 8 * n + 4 * t, 4 * n),
-    ]
-    table = {}
-    for key, name, replaces, kern, plain, nin, nout in rows:
-        # no single PyTorch call computes per-row absmax int8 (K1-K4)
-        table[key] = timed_row(key, name, "cut_layer.cu", replaces, kern,
-                               plain, None, f"{t} x {MAIN_D} f32",
-                               bound(key, t, MAIN_D, nin, nout), err[key])
+    # no single PyTorch call computes per-row absmax int8 (K1-K4)
+    table = {"K2": timed_row(
+        "K2", "cut_dequantize", "cut_layer.cu",
+        "src/repro/kernels/act_compress/act_compress.py:57",
+        lambda: AC.dequantize_rows(q, s, x.dtype),
+        lambda: R.dequantize_ref(q, s, x.dtype), None,
+        f"{t} x {MAIN_D} f32", bound("K2", t, MAIN_D, n + 4 * t, 4 * n),
+        err["K2"])}
+    # the same into bf16 (precision="bf16" puts it on the main path)
+    b16 = timed_row("K2", "cut_dequantize", "cut_layer.cu", "",
+                    lambda: AC.dequantize_rows(q, s, torch.bfloat16),
+                    lambda: R.dequantize_ref(q, s, torch.bfloat16), None,
+                    f"{t} x {MAIN_D} bf16",
+                    bound("K2", t, MAIN_D, n + 4 * t, 2 * n), err["K2"])
+    table["K2"]["bf16"] = {k: b16[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")} | {"shape": [t, MAIN_D]}
     del x, q, s
-    # the same at bf16 rows (precision="bf16" puts them on the main path):
-    # half the activation bytes; K4's noise z and mask w stay f32
-    x = (torch.randn((MAIN_ROWS, MAIN_D), device=dev, generator=gen)
-         * 3).to(torch.bfloat16)
-    q, s = AC.quantize_rows(x)
-    rows = [
-        ("K2", lambda: AC.dequantize_rows(q, s, x.dtype),
-         lambda: R.dequantize_ref(q, s, x.dtype), n + 4 * t, 2 * n),
-        ("K3", lambda: CF.roundtrip_rows(x), lambda: R.roundtrip_ref(x),
-         2 * n, 2 * n),
-        ("K4", lambda: CF.noise_roundtrip_rows(x, z, w),
-         lambda: RF.noise_roundtrip_ref(x, z, w), 6 * n + 4 * t, 2 * n),
-    ]
-    for key, kern, plain, nin, nout in rows:
-        row = table[key]
-        b16 = timed_row(key, row["name"], "cut_layer.cu", row["replaces"],
-                        kern, plain, None, f"{t} x {MAIN_D} bf16",
-                        bound(key, t, MAIN_D, nin, nout), err[key])
-        row["bf16"] = {k: b16[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by")} | {
-            "shape": [t, MAIN_D]}
-    del x, z, w, q, s
     table = {"K1": check_k1(dev, gen, err["K1"])} | table
-    table["K3"]["unet_leaf"] = check_k3_unet_leaf(dev, gen)
-    unet_leaf_bf16(dev, gen, table)
+    k2_unet_leaf_bf16(dev, gen, table["K2"])
+    check_k3_k4(dev, gen)
+    table.update(time_k3_k4(dev, gen, err))
     check_past_2_31(dev, gen)
     table.update(check_dp_clip(dev, gen))
     return table
+
+
+def row_path(plan) -> str:
+    """A row kernel's path from its plan (``act_compress.vector_plan``)."""
+    return "general" if plan is None else "vector (group %d, vecs %d)" % plan
 
 
 def k1_path(x) -> str:
     """The path K1 takes for the rows ``x`` into a fresh (aligned) q."""
     from repro_torch.kernels.act_compress import act_compress as AC
 
-    plan = AC.quantize_plan(x.shape[1], x.dtype, x.data_ptr(), 0)
-    return "general" if plan is None else "vector (group %d, vecs %d)" % plan
+    return row_path(AC.quantize_plan(x.shape[1], x.dtype, x.data_ptr(), 0))
+
+
+def k3_path(x) -> str:
+    """The path K3 takes for the rows of ``x`` (along its last axis; the
+    wrapper copies a view that is not contiguous) into a fresh out."""
+    from repro_torch.kernels.cut_fuse import cut_fuse as CF
+
+    ptr = x.data_ptr() if x.is_contiguous() else 0
+    return row_path(CF.roundtrip_plan(x.shape[-1], x.dtype, ptr, 0))
+
+
+def k4_path(x, z) -> str:
+    """The path K4 takes for the rows ``x`` and noise ``z`` into a fresh
+    out."""
+    from repro_torch.kernels.cut_fuse import cut_fuse as CF
+
+    return row_path(CF.noise_roundtrip_plan(x.shape[1], x.dtype, x.data_ptr(),
+                                            z.data_ptr(), 0))
 
 
 def k1_equals_plain(x, q, s) -> bool:
@@ -318,7 +325,22 @@ def k1_equals_plain(x, q, s) -> bool:
     return True
 
 
-def k1_tie_rows(dev, gen, rows, d, dt):
+def rows_vs_plain(out, plain, *ins):
+    """A row kernel's ``out`` (T, D) against ``plain(*ins)``, taken over
+    2^26 elements of rows at a time (the kernels are row-wise, so the cut
+    is exact): (bit-equal, max abs error)."""
+    import torch
+
+    step = max(1, 2 ** 26 // out.shape[1])
+    same, err = True, 0.0
+    for i in range(0, len(out), step):
+        ref = plain(*(a[i:i + step] for a in ins))
+        same = same and torch.equal(out[i:i + step], ref)
+        err = max(err, max_err(out[i:i + step], ref))
+    return same, err
+
+
+def tie_rows(dev, gen, rows, d, dt):
     """Rows whose every x / scale is an exact .5 tie but one: each row
     holds one +-127 * 2^e (so that its scale is exactly 2^e, with e from -4
     to 4) and otherwise (k + 0.5) * 2^e for k drawn in [-127, 126], all
@@ -333,6 +355,46 @@ def k1_tie_rows(dev, gen, rows, d, dt):
     return (v * torch.exp2(e)[:, None]).to(dt)
 
 
+def tie_share(x, s) -> float:
+    """The share of the elements of ``x`` whose x / scale is a .5 tie."""
+    r = x.float() / s
+    return float(((r - r.floor()) == 0.5).float().mean())
+
+
+def misaligned(dev, dt, rows, d):
+    """A contiguous (rows, d) view one element past an allocation's
+    start."""
+    import torch
+
+    return torch.empty(rows * d + 1, device=dev, dtype=dt)[1:].view(rows, d)
+
+
+ROW_CASE_ROWS = 4099     # a multiple of no block's rows
+
+
+def row_cases(dev, gen, dt):
+    """The rows phase 3 holds K1, K3 and K4 to their plain versions on:
+    (label, x, want), want the path ("vector", "general" or None for
+    either) at every width of VECTOR_D and GENERAL_D, on a misaligned
+    view, and on rows with every third row zero or of .5 ties."""
+    import torch
+
+    rows, cases = ROW_CASE_ROWS, []
+    for d in VECTOR_D + GENERAL_D:
+        x = (torch.randn((rows, d), device=dev, generator=gen) * 3).to(dt)
+        cases.append((f"D {d}", x, "vector" if d in VECTOR_D else "general"))
+    x = misaligned(dev, dt, rows, 160)
+    x.copy_(torch.randn((rows, 160), device=dev, generator=gen) * 3)
+    cases.append(("D 160, misaligned view", x, "general"))
+    for d in (160, 728, 161):
+        x = (torch.randn((rows, d), device=dev, generator=gen) * 3).to(dt)
+        x[::3] = 0
+        cases.append((f"D {d}, every third row zero", x, None))
+        cases.append((f"D {d}, .5 ties", tie_rows(dev, gen, rows, d, dt),
+                      None))
+    return cases
+
+
 def check_k1(dev, gen, err):
     """K1 bit-equal to its plain version on every path of its design, then
     timed at the main path's shape and at the U-Net's widest leaf, in f32
@@ -342,44 +404,26 @@ def check_k1(dev, gen, err):
     from repro_torch.kernels.act_compress import act_compress as AC
     from repro_torch.kernels.act_compress import ref as R
 
-    rows = 4099          # a multiple of no block's rows
     zero_scale = (torch.tensor(R.MIN_AMAX, dtype=torch.float32)
                   * R.INV_127).item()
-    cases = []
     for dt in (torch.float32, torch.bfloat16):
-        for d in K1_VECTOR_D + K1_GENERAL_D:
-            x = (torch.randn((rows, d), device=dev, generator=gen) * 3).to(dt)
-            want = "vector" if d in K1_VECTOR_D else "general"
-            cases.append((f"D {d}", x, want))
-        # a contiguous view one element past an allocation's start
-        x = torch.empty(rows * 160 + 1, device=dev, dtype=dt)[1:].view(
-            rows, 160)
-        x.copy_(torch.randn((rows, 160), device=dev, generator=gen) * 3)
-        cases.append(("D 160, misaligned view", x, "general"))
-        for d in (160, 728, 161):
-            x = (torch.randn((rows, d), device=dev, generator=gen) * 3).to(dt)
-            x[::3] = 0
-            cases.append((f"D {d}, every third row zero", x, None))
-            cases.append((f"D {d}, .5 ties", k1_tie_rows(dev, gen, rows, d,
-                                                          dt), None))
-    for label, x, want in cases:
-        path = k1_path(x)
-        q, s = AC.quantize_rows(x)
-        ok = k1_equals_plain(x, q, s)
-        torch.cuda.synchronize()
-        if "zero" in label:
-            ok = ok and bool((s[::3] == zero_scale).all()) and not bool(
-                q[::3].any())
-        if "ties" in label:
-            # the case is what it says: nearly every x / scale is a tie
-            r = x.float() / s
-            ties = float(((r - r.floor()) == 0.5).float().mean())
-            ok = ok and ties > 0.9
-            label += f" ({100 * ties:.1f}% ties)"
-        log(f"  K1 {str(x.dtype)[6:]} {label}, {path}: {ok}")
-        if not ok or (want and not path.startswith(want)):
-            fail(f"K1 at {label} {x.dtype}: bit-equal {ok}, path {path} "
-                 f"(want {want})")
+        for label, x, want in row_cases(dev, gen, dt):
+            path = k1_path(x)
+            q, s = AC.quantize_rows(x)
+            ok = k1_equals_plain(x, q, s)
+            torch.cuda.synchronize()
+            if "zero" in label:
+                ok = ok and bool((s[::3] == zero_scale).all()) and not bool(
+                    q[::3].any())
+            if "ties" in label:
+                # the case is what it says: nearly every x / scale is a tie
+                ties = tie_share(x, s)
+                ok = ok and ties > 0.9
+                label += f" ({100 * ties:.1f}% ties)"
+            log(f"  K1 {str(x.dtype)[6:]} {label}, {path}: {ok}")
+            if not ok or (want and not path.startswith(want)):
+                fail(f"K1 at {label} {x.dtype}: bit-equal {ok}, path {path} "
+                     f"(want {want})")
 
     row = None
     for label, t, d in [("main", MAIN_ROWS, MAIN_D),
@@ -392,22 +436,10 @@ def check_k1(dev, gen, err):
                 fail(f"K1 disagrees with its plain version at {t} x {d} {dt}")
             args = AC.quantize_args(x, q, s)
             n = x.numel()
-            b_ms, b_by = bound("K1", t, d, x.element_size() * n, n + 4 * t)
-            p0, w0 = cuda_ms(lambda: R.quantize_ref(x)), cuda_ms(
-                lambda: AC.quantize_rows(x))
-            k0 = cuda_ms(lambda: AC.QUANTIZE(*args))
-            k1 = cuda_ms(lambda: AC.QUANTIZE(*args))
-            w1, p1 = cuda_ms(lambda: AC.quantize_rows(x)), cuda_ms(
-                lambda: R.quantize_ref(x))
-            entry = {"ms": (w0 + w1) / 2, "bare_ms": (k0 + k1) / 2,
-                     "plain_ms": (p0 + p1) / 2, "bound_ms": b_ms,
-                     "bound_by": b_by, "shape": [t, d]}
-            log(f"  K1 cut_quantize {k1_path(x)}: bare {entry['bare_ms']:.4f}"
-                f" ms ({k0:.4f}, {k1:.4f}; {100 * b_ms / entry['bare_ms']:.1f}"
-                f"% of the bound), wrapper {entry['ms']:.4f} ms ({w0:.4f}, "
-                f"{w1:.4f}), plain {entry['plain_ms']:.4f} ms ({p0:.4f}, "
-                f"{p1:.4f}), bound {b_ms:.4f} ms by {b_by} at {t} x {d} "
-                f"{str(dt)[6:]}")
+            entry = timed_bare(
+                "K1 cut_quantize", k1_path(x), lambda: AC.quantize_rows(x),
+                lambda: AC.QUANTIZE(*args), lambda: R.quantize_ref(x),
+                bound("K1", t, d, x.element_size() * n, n + 4 * t), t, d, dt)
             del x, q, s
             if row is None:
                 row = {"name": "cut_quantize", "route": "cuda",
@@ -427,113 +459,220 @@ def check_k1(dev, gen, err):
     return row
 
 
+def timed_bare(label, path, wrapper, bare, plain, roofline, t, d, dt):
+    """Time a row kernel's wrapper, its bare launch (outputs allocated
+    once) and its plain version in the order plain, wrapper, bare, bare,
+    wrapper, plain; each the mean of its pair, both of which are printed.
+    Returns the entry of the kernels line at this shape."""
+    b_ms, b_by = roofline
+    p0, w0 = cuda_ms(plain), cuda_ms(wrapper)
+    k0, k1 = cuda_ms(bare), cuda_ms(bare)
+    w1, p1 = cuda_ms(wrapper), cuda_ms(plain)
+    entry = {"ms": (w0 + w1) / 2, "bare_ms": (k0 + k1) / 2,
+             "plain_ms": (p0 + p1) / 2, "bound_ms": b_ms, "bound_by": b_by,
+             "shape": [t, d]}
+    log(f"  {label} {path}: bare {entry['bare_ms']:.4f} ms ({k0:.4f}, "
+        f"{k1:.4f}; {100 * b_ms / entry['bare_ms']:.1f}% of the bound), "
+        f"wrapper {entry['ms']:.4f} ms ({w0:.4f}, {w1:.4f}), plain "
+        f"{entry['plain_ms']:.4f} ms ({p0:.4f}, {p1:.4f}), bound "
+        f"{b_ms:.4f} ms by {b_by} at {t} x {d} {str(dt)[6:]}")
+    return entry
+
+
 def k3_equals_plain(x, out) -> bool:
     """K3's output ``out`` of the rows ``x`` (any shape, rows along the
-    last axis) bit-equal to the plain version, taken over 2^26 elements of
-    rows at a time (the roundtrip is row-wise, so the cut is exact)."""
-    import torch
+    last axis) bit-equal to the plain version."""
     from repro_torch.kernels.act_compress import ref as R
 
     d = x.shape[-1]
-    a, b = x.detach().reshape(-1, d), out.detach().reshape(-1, d)
-    step = max(1, 2 ** 26 // d)
-    return all(torch.equal(b[i:i + step], R.roundtrip_ref(a[i:i + step]))
-               for i in range(0, len(a), step))
+    return rows_vs_plain(out.detach().reshape(-1, d), R.roundtrip_ref,
+                         x.detach().reshape(-1, d))[0]
 
 
-def check_k3_unet_leaf(dev, gen):
-    """K3 at the U-Net's widest boundary leaf (UNET_ROWS x 64 f32, 1.5 GB,
-    below 2^31 bytes; each lane of a row's warp holds two elements):
-    bit-equal to its plain version, then timed like the rows above."""
+def row_weights(dev, gen, rows):
+    """K4's row weights: all ones (today's callers), masked 0/1 (a padded
+    batch) and fractional."""
+    import torch
+
+    return {"w ones": torch.ones((rows, 1), device=dev),
+            "w masked": (torch.rand((rows, 1), device=dev, generator=gen)
+                         < 0.6).float(),
+            "w fractional": torch.rand((rows, 1), device=dev, generator=gen)}
+
+
+def check_k3_k4(dev, gen):
+    """K3 and K4 bit-equal to their plain versions on every path of their
+    design (``row_cases``, and for K4 a z view off the 16-byte boundary,
+    which takes the general path), K4 under each of ``row_weights``; each
+    case on the path its plan says."""
     import torch
     from repro_torch.kernels.act_compress import ref as R
     from repro_torch.kernels.cut_fuse import cut_fuse as CF
+    from repro_torch.kernels.cut_fuse import ref as RF
 
-    x = torch.randn((UNET_ROWS, UNET_D), device=dev, generator=gen) * 3
-    rt, rt_r = CF.roundtrip_rows(x), R.roundtrip_ref(x)
-    torch.cuda.synchronize()
-    ok = torch.equal(rt, rt_r)
-    err = max_err(rt, rt_r)
-    log(f"  ({UNET_ROWS}, {UNET_D}) f32: K3 {ok}")
-    if not ok:
-        fail("K3 disagrees with its plain version at the U-Net's leaf")
-    del rt, rt_r
-    n = x.numel()
-    row = timed_row("K3", "cut_roundtrip", "cut_layer.cu",
-                    "src/repro/kernels/cut_fuse/cut_fuse.py:80",
-                    lambda: CF.roundtrip_rows(x), lambda: R.roundtrip_ref(x),
-                    None, f"{UNET_ROWS} x {UNET_D} f32 (the U-Net's widest "
-                    "leaf)", bound("K3", UNET_ROWS, UNET_D, 4 * n, 4 * n),
-                    err)
-    del x
+    rows = ROW_CASE_ROWS
+    weights = row_weights(dev, gen, rows)
+    for dt in (torch.float32, torch.bfloat16):
+        cases = []
+        for label, x, want in row_cases(dev, gen, dt):
+            z = torch.randn(x.shape, device=dev, generator=gen) * 0.5
+            cases.append((label, x, z, want, want))
+        x = (torch.randn((rows, 160), device=dev, generator=gen) * 3).to(dt)
+        z = misaligned(dev, torch.float32, rows, 160)
+        z.copy_(torch.randn((rows, 160), device=dev, generator=gen) * 0.5)
+        cases.append(("D 160, misaligned z view", x, z, "vector",
+                      "general"))
+        for label, x, z, want3, want4 in cases:
+            p3, p4 = k3_path(x), k4_path(x, z)
+            ok3 = torch.equal(CF.roundtrip_rows(x), R.roundtrip_ref(x))
+            ok4 = {k: torch.equal(CF.noise_roundtrip_rows(x, z, w),
+                                  RF.noise_roundtrip_ref(x, z, w))
+                   for k, w in weights.items()}
+            torch.cuda.synchronize()
+            if "ties" in label:
+                ties = tie_share(x, R.quantize_ref(x)[1])
+                ok3 = ok3 and ties > 0.9
+                label += f" ({100 * ties:.1f}% ties)"
+            log(f"  K3/K4 {str(dt)[6:]} {label}: K3 {p3} {ok3}; K4 {p4} "
+                + ", ".join(f"{k} {v}" for k, v in ok4.items()))
+            if not (ok3 and all(ok4.values())) or (
+                    want3 and not p3.startswith(want3)) or (
+                    want4 and not p4.startswith(want4)):
+                fail(f"K3/K4 at {label} {dt}: K3 bit-equal {ok3}, path {p3} "
+                     f"(want {want3}); K4 {ok4}, path {p4} (want {want4})")
     torch.cuda.empty_cache()
-    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "max_abs_err")} | {
-        "shape": [UNET_ROWS, UNET_D]}
 
 
-def unet_leaf_bf16(dev, gen, table):
-    """K2, K3 and K4 at the U-Net's widest leaf in bf16 (UNET_ROWS x 64):
-    bit-equal to their plain versions, then timed like the rows above;
-    each row of ``table`` gains ``unet_leaf["bf16"]``."""
+def time_k3_k4(dev, gen, err):
+    """K3 and K4, bit-equal to their plain versions first, then timed as
+    wrapper calls and as bare launches (outputs allocated once) at the
+    main path's shape and the U-Net's widest leaf in f32 and bf16, and K4
+    at one hospital's rows of the private step (f32, its launch shape);
+    returns their rows of the kernels line."""
+    import torch
+    from repro_torch.kernels.act_compress import ref as R
+    from repro_torch.kernels.cut_fuse import cut_fuse as CF
+    from repro_torch.kernels.cut_fuse import ref as RF
+
+    rows = {key: {"name": name, "route": "cuda",
+                  "source": CUDA_SRC + "cut_layer.cu",
+                  "replaces": "src/repro/kernels/cut_fuse/cut_fuse.py:" + at,
+                  "launches": 0, "max_abs_err": err[key]}
+            for key, name, at in [("K3", "cut_roundtrip", "80"),
+                                  ("K4", "cut_noise_roundtrip", "98")]}
+    shapes = [("main", MAIN_ROWS, MAIN_D, torch.float32),
+              ("main", MAIN_ROWS, MAIN_D, torch.bfloat16),
+              ("unet_leaf", UNET_ROWS, UNET_D, torch.float32),
+              ("unet_leaf", UNET_ROWS, UNET_D, torch.bfloat16),
+              ("one_hospital", HOSPITAL_ROWS, MAIN_D, torch.float32)]
+    for label, t, d, dt in shapes:
+        x = (torch.randn((t, d), device=dev, generator=gen) * 3).to(dt)
+        z = torch.randn((t, d), device=dev, generator=gen) * 0.5
+        w = torch.ones((t, 1), device=dev)
+        out = torch.empty_like(x)
+        n, e = x.numel(), x.element_size()
+        kernels = [
+            ("K3", CF.roundtrip_rows, CF.ROUNDTRIP, CF.roundtrip_args,
+             R.roundtrip_ref, (x,), k3_path(x), e * n),
+            ("K4", CF.noise_roundtrip_rows, CF.NOISE_ROUNDTRIP,
+             CF.noise_roundtrip_args, RF.noise_roundtrip_ref, (x, z, w),
+             k4_path(x, z), (e + 4) * n + 4 * t)]
+        for key, wrapper, kernel, args_of, plain, ins, path, nin in kernels:
+            if label == "one_hospital" and key == "K3":
+                continue
+            same, max_abs = rows_vs_plain(wrapper(*ins), plain, *ins)
+            args = args_of(*ins, out)
+            kernel(*args)
+            same = same and rows_vs_plain(out, plain, *ins)[0]
+            if not same:
+                fail(f"{key} disagrees with its plain version at {t} x {d} "
+                     f"{dt}")
+            entry = timed_bare(
+                f"{key} {rows[key]['name']}", path, lambda: wrapper(*ins),
+                lambda: kernel(*args), lambda: plain(*ins),
+                bound(key, t, d, nin, e * n), t, d, dt) | {
+                    "max_abs_err": max_abs}
+            row = rows[key]
+            worst = max(row["max_abs_err"], max_abs)
+            if label == "main" and dt == torch.float32:
+                entry.pop("shape")
+                row.update(entry)
+            elif label == "main":
+                row["bf16"] = entry
+            elif label == "unet_leaf" and dt == torch.float32:
+                row["unet_leaf"] = entry
+            elif label == "unet_leaf":
+                row["unet_leaf"]["bf16"] = entry
+            else:
+                row[label] = entry
+            row["max_abs_err"] = worst
+        del x, z, w, out, kernels, ins
+        torch.cuda.empty_cache()
+    for row in rows.values():
+        row |= {"library_ms": None, "redesigned": "PR 20"}
+    return rows
+
+
+def k2_unet_leaf_bf16(dev, gen, row):
+    """K2 at the U-Net's widest leaf in bf16 (UNET_ROWS x 64): bit-equal
+    to its plain version, then timed like the rows above; ``row`` gains
+    ``unet_leaf["bf16"]``."""
+    import torch
+    from repro_torch.kernels.act_compress import act_compress as AC
+    from repro_torch.kernels.act_compress import ref as R
+
+    t, d = UNET_ROWS, UNET_D
+    x = (torch.randn((t, d), device=dev, generator=gen) * 3).to(
+        torch.bfloat16)
+    q, s = AC.quantize_rows(x)
+    n = x.numel()
+    kern = lambda: AC.dequantize_rows(q, s, x.dtype)  # noqa: E731
+    plain = lambda: R.dequantize_ref(q, s, x.dtype)  # noqa: E731
+    out, out_r = kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_r):
+        fail(f"K2 disagrees with its plain version at {t} x {d} bf16")
+    e = max_err(out, out_r)
+    del out, out_r
+    b16 = timed_row("K2", row["name"], "cut_layer.cu", row["replaces"], kern,
+                    plain, None, f"{t} x {d} bf16 (the U-Net's widest leaf)",
+                    bound("K2", t, d, n + 4 * t, 2 * n), e)
+    row.setdefault("unet_leaf", {})["bf16"] = {
+        k: b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "max_abs_err")} | {"shape": [t, d]}
+    del x, q, s
+    torch.cuda.empty_cache()
+
+
+def check_past_2_31(dev, gen):
+    """K1, K3 and K4 on WIDE_ROWS x 64 bf16, 2^31 + 512 elements: the last
+    rows start past 2^31 elements, where a 32-bit row * D would wrap (K4's
+    z past 2^33 bytes); bit-equal to their plain versions in every row
+    (not timed)."""
     import torch
     from repro_torch.kernels.act_compress import act_compress as AC
     from repro_torch.kernels.act_compress import ref as R
     from repro_torch.kernels.cut_fuse import cut_fuse as CF
     from repro_torch.kernels.cut_fuse import ref as RF
 
-    t, d = UNET_ROWS, UNET_D
-    x = (torch.randn((t, d), device=dev, generator=gen) * 3).to(
-        torch.bfloat16)
-    z = torch.randn((t, d), device=dev, generator=gen) * 0.5
-    w = torch.ones((t, 1), device=dev)
-    q, s = AC.quantize_rows(x)
-    n = x.numel()
-    rows = [
-        ("K2", lambda: AC.dequantize_rows(q, s, x.dtype),
-         lambda: R.dequantize_ref(q, s, x.dtype), n + 4 * t, 2 * n),
-        ("K3", lambda: CF.roundtrip_rows(x), lambda: R.roundtrip_ref(x),
-         2 * n, 2 * n),
-        ("K4", lambda: CF.noise_roundtrip_rows(x, z, w),
-         lambda: RF.noise_roundtrip_ref(x, z, w), 6 * n + 4 * t, 2 * n),
-    ]
-    for key, kern, plain, nin, nout in rows:
-        out, out_r = kern(), plain()
-        torch.cuda.synchronize()
-        if not torch.equal(out, out_r):
-            fail(f"{key} disagrees with its plain version at {t} x {d} bf16")
-        e = max_err(out, out_r)
-        del out, out_r
-        row = table[key]
-        b16 = timed_row(key, row["name"], "cut_layer.cu", row["replaces"],
-                        kern, plain, None, f"{t} x {d} bf16 (the U-Net's "
-                        "widest leaf)", bound(key, t, d, nin, nout), e)
-        row.setdefault("unet_leaf", {})["bf16"] = {
-            k: b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "max_abs_err")} | {"shape": [t, d]}
-    del x, z, w, q, s
-    torch.cuda.empty_cache()
-
-
-def check_past_2_31(dev, gen):
-    """K3 and K1 on WIDE_ROWS x 64 bf16, 2^31 + 512 elements: the last rows
-    start past 2^31 elements, where a 32-bit row * D would wrap; bit-equal
-    to their plain versions in every row (not timed)."""
-    import torch
-    from repro_torch.kernels.act_compress import act_compress as AC
-    from repro_torch.kernels.cut_fuse import cut_fuse as CF
-
     x = torch.randn((WIDE_ROWS, UNET_D), device=dev, generator=gen,
                     dtype=torch.bfloat16)
-    ok3 = k3_equals_plain(x, CF.roundtrip_rows(x))
+    ok3 = rows_vs_plain(CF.roundtrip_rows(x), R.roundtrip_ref, x)[0]
     torch.cuda.empty_cache()
     ok1 = k1_equals_plain(x, *AC.quantize_rows(x))
-    log(f"  ({WIDE_ROWS}, {UNET_D}) bf16, {x.numel()} elements: K3 {ok3}, "
-        f"K1 ({k1_path(x)}) {ok1}")
-    del x
     torch.cuda.empty_cache()
-    if not (ok3 and ok1):
-        fail("K3 or K1 disagrees with its plain version past 2^31 elements")
+    z = torch.randn((WIDE_ROWS, UNET_D), device=dev, generator=gen) * 0.5
+    w = torch.rand((WIDE_ROWS, 1), device=dev, generator=gen)
+    ok4 = rows_vs_plain(CF.noise_roundtrip_rows(x, z, w),
+                        RF.noise_roundtrip_ref, x, z, w)[0]
+    log(f"  ({WIDE_ROWS}, {UNET_D}) bf16, {x.numel()} elements: K3 "
+        f"({k3_path(x)}) {ok3}, K1 ({k1_path(x)}) {ok1}, K4 ({k4_path(x, z)}"
+        f", fractional w) {ok4}")
+    del x, z, w
+    torch.cuda.empty_cache()
+    if not (ok3 and ok1 and ok4):
+        fail("K1, K3 or K4 disagrees with its plain version past 2^31 "
+             "elements")
 
 
 def timed_row(key, name, source, replaces, kern, plain, library, shape,
@@ -1194,10 +1333,12 @@ def grid_run(method, nls, adapter, clients, batch, dev, profile=False):
         fail(f"{label}: non-finite losses")
     if split:
         log(f"    K3 == plain at step 1's leaves: "
-            f"{' '.join(f'{tuple(s)} {ok}' for s, ok in held)}")
-        if len(held) != leaves or not all(ok for _, ok in held):
+            f"{' '.join(f'{tuple(s)} {ok} {p}' for s, ok, p in held)}")
+        if len(held) != leaves or not all(ok for _, ok, _ in held):
             fail(f"{label}: K3 disagrees with its plain version at a "
                  "boundary leaf of the first step, or a leaf went unheld")
+        if not all(p.startswith("vector") for _, _, p in held):
+            fail(f"{label}: K3 took its general path at a boundary leaf")
     want = {"K1": 0, "K2": 0, "K3": leaves * epoch.steps if split else 0}
     if counts != want:
         fail(f"{label}: launches {counts}, expected {want}")
@@ -1230,14 +1371,16 @@ def held_leaves(transport, n):
     """Hold K3's output at the first ``n`` leaves ``transport`` sends (the
     first step's boundary leaves, every crossing) against its plain version
     on the same rows; the output the step uses is the one held, so this
-    launches nothing.  Returns the list of (shape, equal) it fills."""
+    launches nothing.  Returns the list of (shape, equal, path) it
+    fills."""
     codec, held = transport.codec, []
     fused = codec.fused_roundtrip
 
     def checked(x):
         out = fused(x)
         if len(held) < n:
-            held.append((tuple(x.shape), k3_equals_plain(x, out)))
+            held.append((tuple(x.shape), k3_equals_plain(x, out),
+                         k3_path(x)))
         return out
     codec.fused_roundtrip = checked
     return held

@@ -10,6 +10,7 @@ the dtype and the pointers, never by a failure: the vector path (a group
 of lanes a row, 16-byte loads held in registers, x read once) for rows
 that are whole 16-byte vectors on 16-byte boundaries, up to 1,024 f32 or
 2,048 bf16 elements; the general path (one warp a row) for the others.
+K3 and K4 (``cut_fuse``) share the vector path and its ``vector_plan``.
 K2 runs one warp a row.
 """
 
@@ -29,25 +30,29 @@ QUANTIZE = B.CudaKernel("cut_layer.cu", "cut_quantize",
 DEQUANTIZE = B.CudaKernel("cut_layer.cu", "cut_dequantize",
                           [_P, _P, _P, _N, _I, _I])
 
-#: K1's vector path loads x 16 bytes at a time and holds at most MAX_VECS
-#: such vectors of a row in each lane's registers
+#: the vector path (K1, K3, K4) loads rows 16 bytes at a time and holds
+#: at most MAX_VECS such vectors of a row in each lane's registers
 VEC_BYTES, MAX_VECS = 16, 8
 
 
-def quantize_plan(d, dtype, x_ptr, q_ptr):
-    """How K1 takes rows of ``d`` elements of ``dtype`` at ``x_ptr`` into
-    int8 at ``q_ptr``: ``(group, vecs)`` for the vector path, where a group
-    of ``group`` lanes (a power of two, 1 to 32) takes a row and each lane
-    loads ``vecs`` 16-byte vectors of it; None for the general path.
+def vector_plan(d, dtype, aligned):
+    """How a row kernel's vector path takes rows of ``d`` elements of
+    ``dtype``: ``(group, vecs)``, where a group of ``group`` lanes (a power
+    of two, 1 to 32) takes a row and each lane loads ``vecs`` 16-byte
+    vectors of it; None for the general path.
 
-    The vector path needs rows that are whole vectors (``d`` a multiple
-    of 4 f32 or 8 bf16), an x on a 16-byte boundary (then every row is),
-    a q on the boundary of one vector's levels, and rows of at most 32 x
-    MAX_VECS vectors.  Of the groups that fit, it takes the one with the
-    fewest idle vector slots, then one whose groups read whole 32-byte
-    sectors, then about 4 vectors a lane, then the wider group."""
+    ``aligned``: the kernel's ``(pointer, bytes)`` pairs, each pointer on
+    a multiple of its bytes (a pointer to rows of whole vectors on a
+    boundary has every row on it).  The vector path needs those, rows
+    that are whole vectors (``d`` a multiple of 4 f32 or 8 bf16) and rows
+    of at most 32 x MAX_VECS vectors.  Of the groups that fit, it
+    takes the one with the fewest idle vector slots, then one whose groups
+    read whole 32-byte sectors, then about 4 vectors a lane, then the
+    wider group.  The plan depends on the pointers: inside a captured CUDA
+    graph they stay the same at every replay, so the plan taken at capture
+    holds."""
     per = VEC_BYTES // dtype.itemsize
-    if d % per or x_ptr % VEC_BYTES or q_ptr % per:
+    if d % per or any(p % b for p, b in aligned):
         return None
     n = d // per
     plans = [(g, -(-n // g)) for g in (1, 2, 4, 8, 16, 32)]
@@ -56,6 +61,13 @@ def quantize_plan(d, dtype, x_ptr, q_ptr):
         return None
     return min(plans, key=lambda p: (p[0] * p[1], p[0] < 2 <= n,
                                      abs(p[1] - 4), -p[0]))
+
+
+def quantize_plan(d, dtype, x_ptr, q_ptr):
+    """K1's ``vector_plan`` for rows at ``x_ptr`` into int8 at ``q_ptr``:
+    x on a 16-byte boundary, q on the boundary of one vector's levels."""
+    per = VEC_BYTES // dtype.itemsize
+    return vector_plan(d, dtype, ((x_ptr, VEC_BYTES), (q_ptr, per)))
 
 
 def quantize_args(x, q, s):

@@ -26,7 +26,8 @@
 //
 // K4 adds the cut-layer noise in the same pass:
 //   out = T(roundtrip) + T(z * w_row)        an f32 add rounded to T
-// with z the pre-scaled f32 noise and w the row's weight.  Each product is
+// with z the pre-scaled f32 noise and w the row's weight (any value: ones
+// today, the pad-and-mask weights of a padded batch too).  Each product is
 // rounded on its own (__fmul_rn, then to T) and the sum is __fadd_rn, so
 // nvcc's default -fmad=true cannot contract a product into an FMA: that is
 // the reference's pin_product order, and in bf16 XLA's f32 add rounded
@@ -39,41 +40,45 @@
 // K3 moves 321 MB per step, about 96 us at 3.35 TB/s.  K4 reads x and z and
 // writes the output, 12 B per f32 element (483 MB, 0.144 ms at that shape).
 //
-// Bound, and what the design does about it.  K1 moves 5 B an element in
-// f32 and 3 in bf16 for one true division and a few other f32 operations,
-// so the bytes bound it, but only if enough of them are in flight: at the
-// main path's D = 160 one warp a row with lanes striding by 32 elements
-// moved 64 B a load in bf16, read the row twice and did five elements a
-// lane, and K1 in bf16 took 95% of its f32 time on 60% of the bytes.
-// K1 therefore has its own kernels:
-//   vector path (quantize_vec_kernel): a group of G lanes takes a row, G a
-//     power of two from 1 to 32 (32 / G rows a warp) that the wrapper
-//     chooses from D and the dtype (act_compress.quantize_plan).  Each
-//     lane issues all its 16-byte loads of the row (4 f32 or 8 bf16, the
-//     group's lanes on neighbouring vectors) before it uses any, keeps
-//     them in registers for both the absmax, a G-wide shuffle reduction,
-//     and the quantize, so x is read once, and stores each vector's levels
-//     packed (4 or 8 bytes).  The group's first lane writes the scale.
+// Bound, and what the design does about it.  The bytes bound these
+// kernels only if enough of them are in flight and the per-row work stays
+// small.  One warp a row with lanes striding by 32 elements moved 64 B a
+// load in bf16, read the row twice and paid a 5-step shuffle a row: at
+// D = 64 that set the time (K1 at 27% of its bound in bf16, K3 at 36%).
+// So K1, K3 and K4 share one row-group body and differ only after it:
+//   vector path: a group of G lanes takes a row, G a power of two from 1
+//     to 32 (32 / G rows a warp) that the wrapper chooses from D, the
+//     dtype and the pointers (act_compress.vector_plan).  Each lane issues
+//     all its 16-byte loads of the row (4 f32 or 8 bf16, the group's lanes
+//     on neighbouring vectors) before it uses any and keeps them in
+//     registers (load_row): the absmax is a G-wide shuffle reduction, the
+//     row is read once, and then
+//       K1 stores each vector's levels packed (4 or 8 bytes) and the
+//          group's first lane the scale;
+//       K3 stores each vector's roundtrip as one 16-byte vector (the int8
+//          never leaves registers);
+//       K4 also loads the row's z (one float4 per f32 vector of x, two
+//          per bf16 one) and w[row] before the shuffle, so the whole row
+//          is in flight at once, and stores 16-byte vectors as K3.
 //     A block of 256 threads takes 256 / G rows, and at most 2^16 blocks
-//     walk over the rows with a grid stride.  It needs D a multiple of the
-//     vector, x 16-byte and q vector-aligned, and rows of at most 32 x 8
-//     vectors (D <= 1024 f32, 2048 bf16);
-//   general path (quantize_general_kernel): any D and alignment, one warp
-//     a row as K2-K4 (below), reading the row twice.
+//     walk over the rows with a grid stride: the grid comes from the plan
+//     alone, so a launch can be captured in a CUDA graph (the plan depends
+//     on the pointers, which stay the same at every replay of the graph's
+//     pool).  It needs D a multiple of the vector, x, out and z on 16-byte
+//     boundaries (K1's q on a vector's levels), and rows of at most 32 x
+//     8 vectors (D <= 1024 f32, 2048 bf16);
+//   general path: any D and alignment, one warp a row, the row read twice
+//     (the second pass finds it in L1), lanes striding over it; K2 always
+//     runs so.
 // The wrapper chooses the path from the shape and the pointers; the entry
-// point refuses a plan the vector path cannot take.  Row offsets are 64-bit.
-//
-// K2-K4: one warp per row, eight rows per 256-thread block.  Lanes stride
-// over the row, so every warp load touches consecutive addresses; the row
-// max is a warp-shuffle reduction; the second pass reads the row again,
-// which the block's few KB keep in L1, so device memory sees each input
-// byte once.  D need not be a power of two or a multiple of 32: lanes past
-// the row edge simply do no work.  K3 never writes the int8.  They do not
-// take K1's 16-byte groups yet.
+// point refuses a plan the vector path cannot take.  Row offsets are
+// 64-bit on both paths, for x, z, q and out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -93,14 +98,10 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__device__ __forceinline__ float row_scale(const T* x, int d, int lane) {
-  float amax = 0.f;
-  for (int j = lane; j < d; j += kWarp) amax = fmaxf(amax, fabsf(load_f(x + j)));
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  return __fmul_rn(fmaxf(amax, kMinAmax), kInv127);
+// v rounded to T's precision and back to float (the identity for f32).
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // The int8 level of x as a float holding an integer in [-127, 127].
@@ -108,17 +109,18 @@ __device__ __forceinline__ float quant_level(float x, float scale) {
   return fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.f), 127.f);
 }
 
-__device__ __forceinline__ long long warp_row() {
-  return (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x / kWarp);
+// ---- the vector path (K1, K3, K4) ---------------------------------------
+
+constexpr int kVecThreads = 256;
+constexpr int kMaxVecs = 8;           // act_compress.MAX_VECS
+constexpr long long kMaxVecBlocks = 1 << 16;
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-// ---- K1 ----------------------------------------------------------------
-
-constexpr int kQuantThreads = 256;
-constexpr int kMaxVecs = 8;           // act_compress.MAX_VECS
-constexpr long long kMaxQuantBlocks = 1 << 16;
-
-// The values of 16 bytes of T as floats (exact), in memory order.
+// The values of 16 bytes of T as floats (exact), in memory order, and
+// back (rounded to T).
 template <typename T>
 struct Vec16;
 
@@ -130,6 +132,10 @@ struct Vec16<float> {
     f[1] = __uint_as_float(v.y);
     f[2] = __uint_as_float(v.z);
     f[3] = __uint_as_float(v.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
 };
 
@@ -144,7 +150,71 @@ struct Vec16<__nv_bfloat16> {
       f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = bf16_bits(f[2 * i]) | (bf16_bits(f[2 * i + 1]) << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
 };
+
+// A lane's place in the vector path's walk: a group of 2^glog lanes takes
+// a row, a warp 32 / G rows at a time, and the grid's warps stride over the
+// rows.  Every lane of a warp runs the same iterations (the shuffles need
+// all of them); a lane whose row lies past the last is not live.  Vector j
+// of a row is in lane j % G of its group, slot j / G.
+struct RowGroups {
+  long long rows, first, step;  // first: the warp's first row
+  int glog, gl, sub;            // sub: the lane's group in its warp
+
+  __device__ __forceinline__ RowGroups(long long rows_, int glog_)
+      : rows(rows_), glog(glog_) {
+    const int lane = threadIdx.x % kWarp;
+    gl = lane & ((1 << glog) - 1);
+    sub = lane >> glog;
+    first = ((long long)blockIdx.x * (kVecThreads / kWarp) +
+             threadIdx.x / kWarp) << (5 - glog);
+    step = ((long long)gridDim.x * (kVecThreads / kWarp)) << (5 - glog);
+  }
+  __device__ __forceinline__ bool more() const { return first < rows; }
+  __device__ __forceinline__ void next() { first += step; }
+  __device__ __forceinline__ bool live() const { return first + sub < rows; }
+  // the lane's row (row 0 for a lane that is not live: a safe address)
+  __device__ __forceinline__ long long row() const {
+    return live() ? first + sub : 0;
+  }
+  __device__ __forceinline__ int vec(int k) const { return gl + (k << glog); }
+};
+
+// The front half of the vector path, shared by K1, K3 and K4: the lane
+// issues all its 16-byte loads of its row (slots past the row, or of a
+// lane that is not live, stay zero) before it uses any, then the row's
+// absmax is a G-wide shuffle reduction; returns the row's scale.
+template <typename T, int V>
+__device__ __forceinline__ float load_row(const T* __restrict__ x, int d,
+                                          const RowGroups& g, uint4 (&v)[V]) {
+  using Vec = Vec16<T>;
+  const int nvec = d / Vec::kN;
+  const bool live = g.live();
+  const uint4* xr = reinterpret_cast<const uint4*>(x + g.row() * d);
+#pragma unroll
+  for (int k = 0; k < V; ++k) {  // all loads before the first use
+    const int j = g.vec(k);
+    v[k] = (live && j < nvec) ? __ldg(xr + j) : make_uint4(0, 0, 0, 0);
+  }
+  float amax = 0.f;  // a zero vector leaves it as it is
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    float f[Vec::kN];
+    Vec::unpack(v[k], f);
+#pragma unroll
+    for (int e = 0; e < Vec::kN; ++e) amax = fmaxf(amax, fabsf(f[e]));
+  }
+  for (int off = (1 << g.glog) >> 1; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  return __fmul_rn(fmaxf(amax, kMinAmax), kInv127);
+}
 
 // Four int8 levels (the low bytes of a..d) packed in memory order.
 __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
@@ -169,60 +239,128 @@ __device__ __forceinline__ void store_levels(int8_t* qr, int j, const float* f,
       pack4(level(f[4], s), level(f[5], s), level(f[6], s), level(f[7], s)));
 }
 
-// The vector path: a group of 2^glog lanes a row, each lane holding up to
-// V 16-byte vectors of it (vector j of the row in lane j % G, slot j / G).
+// K1: the levels, packed, and the scale.
 template <typename T, int V>
-__global__ void __launch_bounds__(kQuantThreads)
+__global__ void __launch_bounds__(kVecThreads)
     quantize_vec_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                         float* __restrict__ scale, long long rows, int d,
                         int glog) {
   using Vec = Vec16<T>;
-  const int lane = threadIdx.x % kWarp;
-  const int gl = lane & ((1 << glog) - 1);  // the lane within its group
   const int nvec = d / Vec::kN;
-  const long long rows_per_warp = kWarp >> glog;
-  const long long warps = (long long)gridDim.x * (kQuantThreads / kWarp);
-  // every lane of a warp runs the same iterations (the shuffles need all)
-  for (long long w = (long long)blockIdx.x * (kQuantThreads / kWarp) +
-                     threadIdx.x / kWarp;
-       w * rows_per_warp < rows; w += warps) {
-    const long long row = w * rows_per_warp + (lane >> glog);
-    const bool live = row < rows;
-    const uint4* xr =
-        reinterpret_cast<const uint4*>(x + (live ? row : 0) * d);
+  for (RowGroups g(rows, glog); g.more(); g.next()) {
     uint4 v[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {  // all loads before the first use
-      const int j = gl + (k << glog);
-      v[k] = (live && j < nvec) ? __ldg(xr + j) : make_uint4(0, 0, 0, 0);
-    }
-    float amax = 0.f;  // a zero vector leaves it as it is
+    const float s = load_row<T, V>(x, d, g, v);
+    if (!g.live()) continue;
+    int8_t* qr = q + g.row() * d;
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      float f[Vec::kN];
-      Vec::unpack(v[k], f);
-#pragma unroll
-      for (int e = 0; e < Vec::kN; ++e) amax = fmaxf(amax, fabsf(f[e]));
-    }
-    for (int off = (1 << glog) >> 1; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float s = __fmul_rn(fmaxf(amax, kMinAmax), kInv127);
-    if (!live) continue;
-    int8_t* qr = q + row * d;
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int j = gl + (k << glog);
+      const int j = g.vec(k);
       if (j < nvec) {
         float f[Vec::kN];
         Vec::unpack(v[k], f);
         store_levels(qr, j, f, s, x);
       }
     }
-    if (gl == 0) scale[row] = s;
+    if (g.gl == 0) scale[g.row()] = s;
   }
 }
 
-// The general path: one warp a row, any D and alignment, the row read twice.
+// K3: the roundtrip of each vector, stored as one 16-byte vector of T.
+template <typename T, int V>
+__global__ void __launch_bounds__(kVecThreads)
+    roundtrip_vec_kernel(const T* __restrict__ x, T* __restrict__ out,
+                         long long rows, int d, int glog) {
+  using Vec = Vec16<T>;
+  const int nvec = d / Vec::kN;
+  for (RowGroups g(rows, glog); g.more(); g.next()) {
+    uint4 v[V];
+    const float s = load_row<T, V>(x, d, g, v);
+    if (!g.live()) continue;
+    uint4* orow = reinterpret_cast<uint4*>(out + g.row() * d);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = g.vec(k);
+      if (j < nvec) {
+        float f[Vec::kN];
+        Vec::unpack(v[k], f);
+#pragma unroll
+        for (int e = 0; e < Vec::kN; ++e)
+          f[e] = __fmul_rn(quant_level(f[e], s), s);
+        orow[j] = Vec::pack(f);
+      }
+    }
+  }
+}
+
+// K4: K3's roundtrip plus the row-weighted noise.  z and w are not needed
+// for the absmax, so their loads go out before x's and the shuffle: the
+// lane has its whole share of the row in flight at once.
+template <typename T, int V>
+__global__ void __launch_bounds__(kVecThreads)
+    noise_roundtrip_vec_kernel(const T* __restrict__ x,
+                               const float* __restrict__ z,
+                               const float* __restrict__ w,
+                               T* __restrict__ out, long long rows, int d,
+                               int glog) {
+  using Vec = Vec16<T>;
+  constexpr int kZ = Vec::kN / 4;  // float4s of z per vector of x
+  const int nvec = d / Vec::kN;
+  for (RowGroups g(rows, glog); g.more(); g.next()) {
+    const bool live = g.live();
+    const float4* zr = reinterpret_cast<const float4*>(z + g.row() * d);
+    float4 zv[V * kZ];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = g.vec(k);
+#pragma unroll
+      for (int i = 0; i < kZ; ++i)
+        zv[k * kZ + i] = (live && j < nvec) ? __ldg(zr + j * kZ + i)
+                                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const float wr = live ? __ldg(w + g.row()) : 0.f;
+    uint4 v[V];
+    const float s = load_row<T, V>(x, d, g, v);
+    if (!live) continue;
+    uint4* orow = reinterpret_cast<uint4*>(out + g.row() * d);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = g.vec(k);
+      if (j < nvec) {
+        float f[Vec::kN];
+        Vec::unpack(v[k], f);
+#pragma unroll
+        for (int i = 0; i < kZ; ++i) {
+          const float4 zi = zv[k * kZ + i];
+          const float zf[4] = {zi.x, zi.y, zi.z, zi.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 4 * i + e;
+            const float r = round_as(__fmul_rn(quant_level(f[c], s), s), x);
+            f[c] = __fadd_rn(r, round_as(__fmul_rn(zf[e], wr), x));
+          }
+        }
+        orow[j] = Vec::pack(f);
+      }
+    }
+  }
+}
+
+// ---- the general path: one warp a row, any D and alignment --------------
+
+template <typename T>
+__device__ __forceinline__ float row_scale(const T* x, int d, int lane) {
+  float amax = 0.f;
+  for (int j = lane; j < d; j += kWarp) amax = fmaxf(amax, fabsf(load_f(x + j)));
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  return __fmul_rn(fmaxf(amax, kMinAmax), kInv127);
+}
+
+__device__ __forceinline__ long long warp_row() {
+  return (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x / kWarp);
+}
+
 template <typename T>
 __global__ void quantize_general_kernel(const T* __restrict__ x,
                                         int8_t* __restrict__ q,
@@ -266,12 +404,6 @@ __global__ void roundtrip_kernel(const T* __restrict__ x, T* __restrict__ out,
     store_f(orow + j, __fmul_rn(quant_level(load_f(xr + j), s), s));
 }
 
-// v rounded to T's precision and back to float (the identity for f32).
-__device__ __forceinline__ float round_as(float v, const float*) { return v; }
-__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 template <typename T>
 __global__ void noise_roundtrip_kernel(const T* __restrict__ x,
                                        const float* __restrict__ z,
@@ -293,22 +425,46 @@ __global__ void noise_roundtrip_kernel(const T* __restrict__ x,
   }
 }
 
+// ---- launches -------------------------------------------------------------
+
+constexpr int kThreads = kWarp * kRowsPerBlock;
+
 dim3 grid_for(long long rows) {
   return dim3(static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock));
 }
 
-constexpr int kThreads = kWarp * kRowsPerBlock;
+// The vector path's grid: 256 / G rows a block, at most 2^16 blocks.
+dim3 vec_grid(long long rows, int glog) {
+  const long long per_block = (long long)kVecThreads >> glog;
+  const long long blocks = (rows + per_block - 1) / per_block;
+  return dim3(static_cast<unsigned>(blocks < kMaxVecBlocks ? blocks
+                                                           : kMaxVecBlocks));
+}
 
-template <typename T, int V>
-void launch_vec(const void* x, void* q, void* scale, long long rows, int d,
-                int glog, cudaStream_t st) {
-  const long long rows_per_block = (long long)kQuantThreads >> glog;
-  long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  if (blocks > kMaxQuantBlocks) blocks = kMaxQuantBlocks;
-  quantize_vec_kernel<T, V><<<static_cast<unsigned>(blocks), kQuantThreads,
-                              0, st>>>(
-      static_cast<const T*>(x), static_cast<int8_t*>(q),
-      static_cast<float*>(scale), rows, d, glog);
+// log2(group) if (group, vecs) is a vector plan for rows of d elements of
+// T, else -1.
+template <typename T>
+int plan_glog(int d, int group, int vecs) {
+  constexpr int kN = Vec16<T>::kN;
+  int glog = 0;
+  while ((1 << glog) < group) ++glog;
+  if ((1 << glog) != group || group > kWarp || vecs < 1 || vecs > kMaxVecs ||
+      d % kN || d / kN > group * vecs)
+    return -1;
+  return glog;
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// f(std::integral_constant<int, vecs>) for vecs in [V, kMaxVecs].
+template <int V = 1, typename F>
+void with_vecs(int vecs, F&& f) {
+  if constexpr (V < kMaxVecs) {
+    if (vecs != V) return with_vecs<V + 1>(vecs, f);
+  }
+  f(std::integral_constant<int, V>{});
 }
 
 template <typename T>
@@ -320,24 +476,58 @@ int quantize_as(const void* x, void* q, void* scale, long long rows, int d,
         static_cast<float*>(scale), rows, d);
     return cudaGetLastError();
   }
-  constexpr int kN = Vec16<T>::kN;
-  int glog = 0;
-  while ((1 << glog) < group) ++glog;
-  if ((1 << glog) != group || group > kWarp || vecs < 0 || vecs > kMaxVecs ||
-      d % kN || d / kN > group * vecs ||
-      reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(q) % kN)
+  const int glog = plan_glog<T>(d, group, vecs);
+  if (glog < 0 || !aligned(x, 16) || !aligned(q, Vec16<T>::kN))
     return cudaErrorInvalidValue;  // a plan the vector path cannot take
-  switch (vecs) {
-    case 1: launch_vec<T, 1>(x, q, scale, rows, d, glog, st); break;
-    case 2: launch_vec<T, 2>(x, q, scale, rows, d, glog, st); break;
-    case 3: launch_vec<T, 3>(x, q, scale, rows, d, glog, st); break;
-    case 4: launch_vec<T, 4>(x, q, scale, rows, d, glog, st); break;
-    case 5: launch_vec<T, 5>(x, q, scale, rows, d, glog, st); break;
-    case 6: launch_vec<T, 6>(x, q, scale, rows, d, glog, st); break;
-    case 7: launch_vec<T, 7>(x, q, scale, rows, d, glog, st); break;
-    default: launch_vec<T, 8>(x, q, scale, rows, d, glog, st); break;
+  with_vecs(vecs, [&](auto v) {
+    quantize_vec_kernel<T, decltype(v)::value>
+        <<<vec_grid(rows, glog), kVecThreads, 0, st>>>(
+            static_cast<const T*>(x), static_cast<int8_t*>(q),
+            static_cast<float*>(scale), rows, d, glog);
+  });
+  return cudaGetLastError();
+}
+
+template <typename T>
+int roundtrip_as(const void* x, void* out, long long rows, int d, int group,
+                 int vecs, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (vecs == 0) {
+    roundtrip_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(xt, ot, rows, d);
+    return cudaGetLastError();
   }
+  const int glog = plan_glog<T>(d, group, vecs);
+  if (glog < 0 || !aligned(x, 16) || !aligned(out, 16))
+    return cudaErrorInvalidValue;
+  with_vecs(vecs, [&](auto v) {
+    roundtrip_vec_kernel<T, decltype(v)::value>
+        <<<vec_grid(rows, glog), kVecThreads, 0, st>>>(xt, ot, rows, d, glog);
+  });
+  return cudaGetLastError();
+}
+
+template <typename T>
+int noise_roundtrip_as(const void* x, const void* z, const void* w, void* out,
+                       long long rows, int d, int group, int vecs,
+                       cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const float* zf = static_cast<const float*>(z);
+  const float* wf = static_cast<const float*>(w);
+  T* ot = static_cast<T*>(out);
+  if (vecs == 0) {
+    noise_roundtrip_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(
+        xt, zf, wf, ot, rows, d);
+    return cudaGetLastError();
+  }
+  const int glog = plan_glog<T>(d, group, vecs);
+  if (glog < 0 || !aligned(x, 16) || !aligned(z, 16) || !aligned(out, 16))
+    return cudaErrorInvalidValue;
+  with_vecs(vecs, [&](auto v) {
+    noise_roundtrip_vec_kernel<T, decltype(v)::value>
+        <<<vec_grid(rows, glog), kVecThreads, 0, st>>>(xt, zf, wf, ot, rows,
+                                                        d, glog);
+  });
   return cudaGetLastError();
 }
 
@@ -345,11 +535,12 @@ int quantize_as(const void* x, void* q, void* scale, long long rows, int d,
 
 // Each entry point launches on `stream` and returns cudaGetLastError():
 // 0 when the launch was accepted, a cudaError_t otherwise (an unknown dtype
-// code returns cudaErrorInvalidValue without launching).
+// code, or a vector plan the rows or pointers cannot take, returns
+// cudaErrorInvalidValue without launching).  group, vecs: the vector
+// path's plan (act_compress.vector_plan), or vecs = 0 for the general path.
 extern "C" {
 
-// K1.  group, vecs: the vector path's plan (act_compress.quantize_plan), or
-// vecs = 0 for the general path.
+// K1
 int cut_quantize(const void* x, void* q, void* scale, long long rows, int d,
                  int dtype, int group, int vecs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -360,6 +551,7 @@ int cut_quantize(const void* x, void* q, void* scale, long long rows, int d,
   return cudaErrorInvalidValue;
 }
 
+// K2 (one warp a row)
 int cut_dequantize(const void* q, const void* scale, void* out, long long rows,
                    int d, int out_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -376,37 +568,28 @@ int cut_dequantize(const void* q, const void* scale, void* out, long long rows,
   return cudaGetLastError();
 }
 
+// K3
 int cut_roundtrip(const void* x, void* out, long long rows, int d, int dtype,
-                  void* stream) {
+                  int group, int vecs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    roundtrip_kernel<float><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), rows, d);
-  else if (dtype == kBF16)
-    roundtrip_kernel<__nv_bfloat16><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
-        rows, d);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return roundtrip_as<float>(x, out, rows, d, group, vecs, st);
+  if (dtype == kBF16)
+    return roundtrip_as<__nv_bfloat16>(x, out, rows, d, group, vecs, st);
+  return cudaErrorInvalidValue;
 }
 
+// K4: z f32 (rows, d), w f32 (rows,)
 int cut_noise_roundtrip(const void* x, const void* z, const void* w, void* out,
-                        long long rows, int d, int dtype, void* stream) {
+                        long long rows, int d, int dtype, int group, int vecs,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* zf = static_cast<const float*>(z);
-  const float* wf = static_cast<const float*>(w);
   if (dtype == kF32)
-    noise_roundtrip_kernel<float><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const float*>(x), zf, wf, static_cast<float*>(out), rows,
-        d);
-  else if (dtype == kBF16)
-    noise_roundtrip_kernel<__nv_bfloat16><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), zf, wf,
-        static_cast<__nv_bfloat16*>(out), rows, d);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return noise_roundtrip_as<float>(x, z, w, out, rows, d, group, vecs, st);
+  if (dtype == kBF16)
+    return noise_roundtrip_as<__nv_bfloat16>(x, z, w, out, rows, d, group,
+                                             vecs, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"
