@@ -10,15 +10,16 @@ Phases, in order; any failure exits nonzero before the last line:
      (fused roundtrip + cut noise, masked and unmasked) bit for bit against
      their plain PyTorch versions on the card, in f32 and bf16, at the main
      path's shape (250,880 x 160) and a ragged one (7 x 96), check K3 ==
-     K2(K1(x)) and K4 == K3 + the masked add; K1, K3 and K4 also on each
-     path of their row groups (the vector path at every width the main
-     path hands them, D = 160, 64, 128, 256, 512, 576, 728, 768, the
-     general path at D = 1, 3, 33, 161 and on a misaligned view, K4 also
-     on a misaligned z), on rows with every third row zero and on rows of
-     exact .5 ties, K4 under row weights of ones, 0/1 and fractions; K2 in
-     bf16 once more at the U-Net's widest boundary leaf (5,898,240 x 64),
-     and K1, K3 and K4 past 2^31 elements (33,554,440 x 64 bf16: row
-     offsets that only 64-bit arithmetic forms); hold K5
+     K2(K1(x)) and K4 == K3 + the masked add; K1-K4 also on each path of
+     their row groups (the vector path at every width the main path hands
+     them, D = 160, 64, 128, 256, 512, 576, 728, 768, K2 also 1024, the
+     general path at D = 1, 3, 33, 161 and on a misaligned view: K1, K3
+     and K4's x, K2's q one byte past an allocation, K4 also a misaligned
+     z), on rows with every third row zero and on rows of exact .5 ties,
+     K2 on levels of +-127 under scales from MIN_AMAX * INV_127 to 2^20
+     and against ``torch.mul(q, s, out=out)``, K4 under row weights of
+     ones, 0/1 and fractions, and K1-K4 past 2^31 elements (33,554,440 x
+     64 bf16: row offsets that only 64-bit arithmetic forms); hold K5
      (per-example squared norms) and K6 (scaled batch sum) within 1e-6
      relative of the same sums taken in double, over one hospital's real
      364-leaf per-example gradient table (16 x 6,948,609 f32) and a ragged
@@ -30,10 +31,11 @@ Phases, in order; any failure exits nonzero before the last line:
      cores) within 3e-4 at small, grouped and ragged shapes (unaligned B/C
      rows too) and at the scoring shape (4 x 16 chunks x 128 x 24 heads x
      64, state 128) under two dt ranges; time each with CUDA events beside
-     its bound and, for K5-K7, one PyTorch call (K7: SDPA); K1-K4 are
-     timed on bf16 rows too, K1, K3 and K4 also at the U-Net's leaf in
-     both dtypes and as bare launches (outputs allocated once) beside
-     their wrappers, K4 also at one hospital's 50,176 x 160 f32 rows;
+     its bound and, for K2 and K5-K7, one PyTorch call (K2: ``torch.mul``,
+     K7: SDPA); K1-K4 are timed at the main path's shape and the U-Net's
+     widest leaf (5,898,240 x 64) in both dtypes, as bare launches
+     (outputs allocated once) beside their wrappers, K4 also at one
+     hospital's 50,176 x 160 f32 rows;
   4. train SplitFedv3 (``sflv3_ac``) on DenseNet-121-mini at 32^2 on the
      card and on the CPU from the same start, and hold the card's losses
      and scores against the CPU's plain path over an identity link (the
@@ -74,7 +76,8 @@ Phases, in order; any failure exits nonzero before the last line:
      graph per program, replayed) against the stepwise engine from the
      same start, under cuDNN's deterministic algorithms: every DenseNet
      run of phase 8 in f32 and in bf16, the private SFLv3 step (f32),
-     SFLv3 over the unfused int8 link (bf16: K1, K2 on bf16 rows),
+     SFLv3 over the unfused int8 link (bf16: K1, K2 on bf16 rows, each
+     K2 captured on its vector path),
      3-epoch ``Strategy.run``s of SFLv3 and FL, the U-Net runs of phase
      8 in bf16 and its SFLv3 runs in f32; per run every loss, param and
      epsilon equal to the stepwise engine's, one capture per program
@@ -84,9 +87,9 @@ Phases, in order; any failure exits nonzero before the last line:
      the graph's own buffers, the wire bytes equal to ``comm_per_epoch``'s
      train legs, ``evaluate``, and both engines' step seconds and peaks;
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
-     bf16 rows and ``unet_leaf`` entries, K1, K3 and K4 with ``bare_ms``,
-     K4 with ``one_hospital``), then the last line ``{"ok": true,
-     "device": {...}}``.
+     bf16 rows, ``unet_leaf`` entries and ``bare_ms``, K4 with
+     ``one_hospital``), then the last line ``{"ok": true, "device":
+     {...}}``.
 
 Each phase prints its wall time.  ``--profile`` adds one profiled fused
 step of each main path, of the U-Net's SFLv3 and SL-AM (LS) in phase 8,
@@ -247,31 +250,8 @@ def check_kernels(dev):
                 fail(f"kernel disagrees with its plain version at {shape} "
                      f"{dt}")
 
-    # time K2 at the main path's shape and dtype (f32): 160 MB in, so every
-    # launch finds its input outside the 50 MB L2; K1, K3 and K4 are timed
-    # as bare launches beside their wrappers below
-    x = torch.randn((MAIN_ROWS, MAIN_D), device=dev, generator=gen) * 3
-    q, s = AC.quantize_rows(x)
-    n, t = x.numel(), MAIN_ROWS
-    # no single PyTorch call computes per-row absmax int8 (K1-K4)
-    table = {"K2": timed_row(
-        "K2", "cut_dequantize", "cut_layer.cu",
-        "src/repro/kernels/act_compress/act_compress.py:57",
-        lambda: AC.dequantize_rows(q, s, x.dtype),
-        lambda: R.dequantize_ref(q, s, x.dtype), None,
-        f"{t} x {MAIN_D} f32", bound("K2", t, MAIN_D, n + 4 * t, 4 * n),
-        err["K2"])}
-    # the same into bf16 (precision="bf16" puts it on the main path)
-    b16 = timed_row("K2", "cut_dequantize", "cut_layer.cu", "",
-                    lambda: AC.dequantize_rows(q, s, torch.bfloat16),
-                    lambda: R.dequantize_ref(q, s, torch.bfloat16), None,
-                    f"{t} x {MAIN_D} bf16",
-                    bound("K2", t, MAIN_D, n + 4 * t, 2 * n), err["K2"])
-    table["K2"]["bf16"] = {k: b16[k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by")} | {"shape": [t, MAIN_D]}
-    del x, q, s
-    table = {"K1": check_k1(dev, gen, err["K1"])} | table
-    k2_unet_leaf_bf16(dev, gen, table["K2"])
+    table = {"K1": check_k1(dev, gen, err["K1"]),
+             "K2": check_k2(dev, gen, err["K2"])}
     check_k3_k4(dev, gen)
     table.update(time_k3_k4(dev, gen, err))
     check_past_2_31(dev, gen)
@@ -289,6 +269,14 @@ def k1_path(x) -> str:
     from repro_torch.kernels.act_compress import act_compress as AC
 
     return row_path(AC.quantize_plan(x.shape[1], x.dtype, x.data_ptr(), 0))
+
+
+def k2_path(q, dtype) -> str:
+    """The path K2 takes for the int8 rows ``q`` into a fresh (aligned) out
+    of ``dtype``."""
+    from repro_torch.kernels.act_compress import act_compress as AC
+
+    return row_path(AC.dequantize_plan(q.shape[1], dtype, q.data_ptr(), 0))
 
 
 def k3_path(x) -> str:
@@ -459,24 +447,147 @@ def check_k1(dev, gen, err):
     return row
 
 
-def timed_bare(label, path, wrapper, bare, plain, roofline, t, d, dt):
+def timed_bare(label, path, wrapper, bare, plain, roofline, t, d, dt,
+               library=None):
     """Time a row kernel's wrapper, its bare launch (outputs allocated
-    once) and its plain version in the order plain, wrapper, bare, bare,
-    wrapper, plain; each the mean of its pair, both of which are printed.
-    Returns the entry of the kernels line at this shape."""
+    once), its plain version and (if any) one PyTorch call that computes
+    the same function, in the order plain, wrapper, bare, library, library,
+    bare, wrapper, plain; each the mean of its pair, both of which are
+    printed.  Returns the entry of the kernels line at this shape."""
     b_ms, b_by = roofline
     p0, w0 = cuda_ms(plain), cuda_ms(wrapper)
-    k0, k1 = cuda_ms(bare), cuda_ms(bare)
+    k0 = cuda_ms(bare)
+    lib = [cuda_ms(library), cuda_ms(library)] if library else []
+    k1 = cuda_ms(bare)
     w1, p1 = cuda_ms(wrapper), cuda_ms(plain)
     entry = {"ms": (w0 + w1) / 2, "bare_ms": (k0 + k1) / 2,
              "plain_ms": (p0 + p1) / 2, "bound_ms": b_ms, "bound_by": b_by,
              "shape": [t, d]}
+    said = ""
+    if lib:
+        entry["library_ms"] = sum(lib) / 2
+        said = (f", one PyTorch call {entry['library_ms']:.4f} ms "
+                f"({lib[0]:.4f}, {lib[1]:.4f})")
     log(f"  {label} {path}: bare {entry['bare_ms']:.4f} ms ({k0:.4f}, "
         f"{k1:.4f}; {100 * b_ms / entry['bare_ms']:.1f}% of the bound), "
         f"wrapper {entry['ms']:.4f} ms ({w0:.4f}, {w1:.4f}), plain "
-        f"{entry['plain_ms']:.4f} ms ({p0:.4f}, {p1:.4f}), bound "
+        f"{entry['plain_ms']:.4f} ms ({p0:.4f}, {p1:.4f}){said}, bound "
         f"{b_ms:.4f} ms by {b_by} at {t} x {d} {str(dt)[6:]}")
     return entry
+
+
+def level_rows(dev, gen, rows, d):
+    """Levels and scales at K2's extremes: every row holds +127 and -127
+    and otherwise levels drawn in [-127, 127], under scales spread
+    log-uniformly from the smallest K1 gives (MIN_AMAX * INV_127, row 0)
+    to 2^20 (the last row)."""
+    import torch
+    from repro_torch.kernels.act_compress import ref as R
+
+    q = torch.randint(-127, 128, (rows, d), device=dev, generator=gen,
+                      dtype=torch.int8)
+    q[:, 0], q[:, -1] = 127, -127
+    tiny = torch.tensor(R.MIN_AMAX, dtype=torch.float32) * R.INV_127
+    s = torch.exp2(torch.linspace(math.log2(tiny.item()), 20, rows,
+                                  device=dev))[:, None]
+    s[0], s[-1] = tiny.item(), 2.0 ** 20
+    return q, s
+
+
+def check_k2(dev, gen, err):
+    """K2 bit-equal to its plain version and to ``torch.mul(q, s,
+    out=out)`` on every path of its design: the levels and scales the
+    plain K1 makes of ``row_cases``'s rows and of D = 1024 (the misaligned
+    case's q a view one byte past an allocation), zero rows to zeros, and
+    ``level_rows`` at D = 160 and 161; each case on the path its plan
+    says.  Then timed at the main path's shape and at the U-Net's widest
+    leaf, into f32 and bf16, as wrapper calls, bare launches (out
+    allocated once) and ``torch.mul`` (into a second out); returns K2's
+    row of the kernels line."""
+    import torch
+    from repro_torch.kernels.act_compress import act_compress as AC
+    from repro_torch.kernels.act_compress import ref as R
+
+    rows = ROW_CASE_ROWS
+    for dt in (torch.float32, torch.bfloat16):
+        cases = []
+        wide = (torch.randn((rows, 1024), device=dev, generator=gen)
+                * 3).to(dt)
+        for label, x, want in row_cases(dev, gen, dt) + [("D 1024", wide,
+                                                          "vector")]:
+            q, s = R.quantize_ref(x)
+            if "misaligned" in label:
+                q = misaligned(dev, torch.int8, rows, x.shape[1]).copy_(q)
+                label = label.replace("view", "q view")
+            cases.append((label, q, s, want))
+        for d in (160, 161):
+            cases.append((f"D {d}, levels +-127 under scales from MIN_AMAX "
+                          "* INV_127 to 2^20", *level_rows(dev, gen, rows, d),
+                          None))
+        for label, q, s, want in cases:
+            path = k2_path(q, dt)
+            out = AC.dequantize_rows(q, s, dt)
+            lib = torch.empty_like(out)
+            torch.mul(q, s, out=lib)
+            ok = torch.equal(out, R.dequantize_ref(q, s, dt))
+            ok_lib = torch.equal(lib, out)
+            torch.cuda.synchronize()
+            if "zero" in label:
+                ok = ok and not bool(out[::3].any())
+            log(f"  K2 {str(dt)[6:]} {label}, {path}: {ok}; torch.mul "
+                f"bit-equal {ok_lib}")
+            if not ok or (want and not path.startswith(want)):
+                fail(f"K2 at {label} {dt}: bit-equal {ok}, path {path} (want "
+                     f"{want})")
+    del cases, q, s, out, lib
+
+    row = None
+    for label, t, d in [("main", MAIN_ROWS, MAIN_D),
+                        ("unet_leaf", UNET_ROWS, UNET_D)]:
+        q, s = AC.quantize_rows(torch.randn((t, d), device=dev,
+                                            generator=gen) * 3)
+        n = q.numel()
+        for dt in (torch.float32, torch.bfloat16):
+            out, lib = (torch.empty((t, d), dtype=dt, device=dev)
+                        for _ in range(2))
+            args = AC.dequantize_args(q, s, out)
+            AC.DEQUANTIZE(*args)
+            same, max_abs = rows_vs_plain(
+                out, lambda q, s: R.dequantize_ref(q, s, dt), q, s)
+            same = same and torch.equal(AC.dequantize_rows(q, s, dt), out)
+            torch.mul(q, s, out=lib)
+            same_lib = torch.equal(lib, out)
+            log(f"  K2 at {t} x {d} into {str(dt)[6:]}: bit-equal {same}; "
+                f"torch.mul bit-equal {same_lib}")
+            if not same:
+                fail(f"K2 disagrees with its plain version at {t} x {d} {dt}")
+            entry = timed_bare(
+                "K2 cut_dequantize", k2_path(q, dt),
+                lambda: AC.dequantize_rows(q, s, dt),
+                lambda: AC.DEQUANTIZE(*args),
+                lambda: R.dequantize_ref(q, s, dt),
+                bound("K2", t, d, n + 4 * t, out.element_size() * n), t, d,
+                dt, library=lambda: torch.mul(q, s, out=lib)) | {
+                    "max_abs_err": max_abs, "library_bit_equal": same_lib}
+            del out, lib
+            if row is None:
+                row = {"name": "cut_dequantize", "route": "cuda",
+                       "source": CUDA_SRC + "cut_layer.cu",
+                       "replaces": "src/repro/kernels/act_compress/"
+                                   "act_compress.py:57",
+                       "launches": 0} | entry | {
+                           "max_abs_err": max(err, max_abs),
+                           "redesigned": "PR 21"}
+                row.pop("shape")
+            elif label == "main":
+                row["bf16"] = entry
+            elif dt == torch.float32:
+                row["unet_leaf"] = entry
+            else:
+                row["unet_leaf"]["bf16"] = entry
+        del q, s
+        torch.cuda.empty_cache()
+    return row
 
 
 def k3_equals_plain(x, out) -> bool:
@@ -613,65 +724,40 @@ def time_k3_k4(dev, gen, err):
     return rows
 
 
-def k2_unet_leaf_bf16(dev, gen, row):
-    """K2 at the U-Net's widest leaf in bf16 (UNET_ROWS x 64): bit-equal
-    to its plain version, then timed like the rows above; ``row`` gains
-    ``unet_leaf["bf16"]``."""
-    import torch
-    from repro_torch.kernels.act_compress import act_compress as AC
-    from repro_torch.kernels.act_compress import ref as R
-
-    t, d = UNET_ROWS, UNET_D
-    x = (torch.randn((t, d), device=dev, generator=gen) * 3).to(
-        torch.bfloat16)
-    q, s = AC.quantize_rows(x)
-    n = x.numel()
-    kern = lambda: AC.dequantize_rows(q, s, x.dtype)  # noqa: E731
-    plain = lambda: R.dequantize_ref(q, s, x.dtype)  # noqa: E731
-    out, out_r = kern(), plain()
-    torch.cuda.synchronize()
-    if not torch.equal(out, out_r):
-        fail(f"K2 disagrees with its plain version at {t} x {d} bf16")
-    e = max_err(out, out_r)
-    del out, out_r
-    b16 = timed_row("K2", row["name"], "cut_layer.cu", row["replaces"], kern,
-                    plain, None, f"{t} x {d} bf16 (the U-Net's widest leaf)",
-                    bound("K2", t, d, n + 4 * t, 2 * n), e)
-    row.setdefault("unet_leaf", {})["bf16"] = {
-        k: b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                            "max_abs_err")} | {"shape": [t, d]}
-    del x, q, s
-    torch.cuda.empty_cache()
-
-
 def check_past_2_31(dev, gen):
-    """K1, K3 and K4 on WIDE_ROWS x 64 bf16, 2^31 + 512 elements: the last
-    rows start past 2^31 elements, where a 32-bit row * D would wrap (K4's
-    z past 2^33 bytes); bit-equal to their plain versions in every row
-    (not timed)."""
+    """K1, K2, K3 and K4 on WIDE_ROWS x 64 bf16, 2^31 + 512 elements: the
+    last rows start past 2^31 elements, where a 32-bit row * D would wrap
+    (K4's z past 2^33 bytes); bit-equal to their plain versions in every
+    row (not timed)."""
     import torch
     from repro_torch.kernels.act_compress import act_compress as AC
     from repro_torch.kernels.act_compress import ref as R
     from repro_torch.kernels.cut_fuse import cut_fuse as CF
     from repro_torch.kernels.cut_fuse import ref as RF
 
+    bf16 = torch.bfloat16
     x = torch.randn((WIDE_ROWS, UNET_D), device=dev, generator=gen,
-                    dtype=torch.bfloat16)
+                    dtype=bf16)
     ok3 = rows_vs_plain(CF.roundtrip_rows(x), R.roundtrip_ref, x)[0]
     torch.cuda.empty_cache()
-    ok1 = k1_equals_plain(x, *AC.quantize_rows(x))
+    q, s = AC.quantize_rows(x)
+    ok1 = k1_equals_plain(x, q, s)
+    ok2 = rows_vs_plain(AC.dequantize_rows(q, s, bf16),
+                        lambda q, s: R.dequantize_ref(q, s, bf16), q, s)[0]
+    path2 = k2_path(q, bf16)
+    del q, s
     torch.cuda.empty_cache()
     z = torch.randn((WIDE_ROWS, UNET_D), device=dev, generator=gen) * 0.5
     w = torch.rand((WIDE_ROWS, 1), device=dev, generator=gen)
     ok4 = rows_vs_plain(CF.noise_roundtrip_rows(x, z, w),
                         RF.noise_roundtrip_ref, x, z, w)[0]
     log(f"  ({WIDE_ROWS}, {UNET_D}) bf16, {x.numel()} elements: K3 "
-        f"({k3_path(x)}) {ok3}, K1 ({k1_path(x)}) {ok1}, K4 ({k4_path(x, z)}"
-        f", fractional w) {ok4}")
+        f"({k3_path(x)}) {ok3}, K1 ({k1_path(x)}) {ok1}, K2 ({path2}) {ok2}, "
+        f"K4 ({k4_path(x, z)}, fractional w) {ok4}")
     del x, z, w
     torch.cuda.empty_cache()
-    if not (ok3 and ok1 and ok4):
-        fail("K1, K3 or K4 disagrees with its plain version past 2^31 "
+    if not (ok3 and ok1 and ok2 and ok4):
+        fail("K1, K2, K3 or K4 disagrees with its plain version past 2^31 "
              "elements")
 
 
@@ -1234,7 +1320,8 @@ def main_path(dev, clients, profile):
 def private_path(dev, clients, profile):
     """Phase 6: DP-SGD + cut-layer noise over the int8 link, unfused (K1, K2
     + the masked add, K5, K6) then fused (K4, K5, K6), 2 steps each; then
-    cut-layer noise alone (DP off), one K4 launch per step."""
+    cut-layer noise alone (DP off), one K4 launch per step.  Returns the
+    launches of K1, K2 and K4-K6 in the phase."""
     import numpy as np
 
     n = len(clients)
@@ -1268,7 +1355,7 @@ def private_path(dev, clients, profile):
     if counts["K4"] != len(losses) or counts["K5"] or counts["K6"]:
         fail(f"cut noise alone should launch K4 once per step: {counts}")
     launches = {k: v.launches for k, v in path_kernels().items()
-                if k in ("K4", "K5", "K6")}
+                if k in ("K1", "K2", "K4", "K5", "K6")}
     if not all(launches.values()):
         fail(f"a kernel of the private path never launched: {launches}")
     if profile:
@@ -1472,6 +1559,29 @@ def timed_programs(calls):
         ENG.Program.__call__ = orig
 
 
+@contextlib.contextmanager
+def captured_k2_plans(plans):
+    """Append to ``plans`` the plan (``act_compress.dequantize_plan``) of
+    every K2 launch made while a CUDA graph is being captured: the plan
+    its replays keep."""
+    import torch
+
+    from repro_torch.kernels.act_compress import act_compress as AC
+
+    orig = AC.dequantize_plan
+
+    def record(*args):
+        plan = orig(*args)
+        if torch.cuda.is_current_stream_capturing():
+            plans.append(plan)
+        return plan
+    AC.dequantize_plan = record
+    try:
+        yield
+    finally:
+        AC.dequantize_plan = orig
+
+
 def captured_leaves(transport):
     """Keep the (input, output) of every K3 (or K1/K2 pair) call the
     transport's codec makes while a CUDA graph is being captured: the
@@ -1499,7 +1609,8 @@ def engine_run(engine, method, nls, adapter, clients, batch, dev, precision,
     batches per hospital an epoch), with ``Strategy.run``; returns a dict
     of the strategy, state, logs, transport, step seconds (stepwise: each
     step; compiled: each replay, and the first call of each body apart),
-    the run's wall time, peak memory and the K3 pairs captured."""
+    the run's wall time, peak memory, the K3 pairs captured and the plans
+    of the K2 launches captured."""
     import numpy as np
     import torch
 
@@ -1515,7 +1626,7 @@ def engine_run(engine, method, nls, adapter, clients, batch, dev, precision,
         method, adapter, lambda: O.adam(1e-4), len(clients), transport=tr,
         privacy=None if privacy is None else PrivacyConfig(**privacy),
         engine=engine, precision=precision, device=dev)
-    calls, step_s = [], []
+    calls, step_s, k2_plans = [], [], []
     if engine == "stepwise":
         step = strat._step
 
@@ -1531,8 +1642,10 @@ def engine_run(engine, method, nls, adapter, clients, batch, dev, precision,
     data = [{k: v[:2 * batch] for k, v in c.train.items()} for c in clients]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with timed_programs(calls) if engine == "compiled" \
-            else contextlib.nullcontext():
+    with contextlib.ExitStack() as stack:
+        if engine == "compiled":
+            stack.enter_context(timed_programs(calls))
+            stack.enter_context(captured_k2_plans(k2_plans))
         t0 = time.perf_counter()
         state, logs = strat.run(state, data, np.random.default_rng(1), batch,
                                 epochs)
@@ -1544,7 +1657,7 @@ def engine_run(engine, method, nls, adapter, clients, batch, dev, precision,
     return dict(strat=strat, state=state, logs=logs, tr=tr, wall=wall,
                 step_s=step_s, peak=torch.cuda.max_memory_allocated(),
                 first=[(name, t) for name, t, fresh in calls if fresh],
-                held=held)
+                held=held, k2_plans=k2_plans)
 
 
 def engine_pair(method, nls, precision, opts, adapter, clients, batch, dev,
@@ -1562,7 +1675,8 @@ def engine_pair(method, nls, precision, opts, adapter, clients, batch, dev,
     and the round of FL/SFLv2/SFLv1), K3 must launch once per boundary
     leaf and replay (K4/K5/K6 once per hospital on the private step),
     and K3's output at every boundary leaf of the last replay must be
-    bit-equal to its plain version on the graph's own input buffer."""
+    bit-equal to its plain version on the graph's own input buffer (over
+    the unfused link K2(K1)'s, each K2 captured on its vector path)."""
     import numpy as np
     import torch
 
@@ -1650,6 +1764,14 @@ def engine_pair(method, nls, precision, opts, adapter, clients, batch, dev,
         if not privacy and (len(ok) != leaves or not all(ok)):
             fail(f"{label}: the link disagrees with its plain version on "
                  "the graph's buffers, or a leaf went unheld")
+        if not fuse:
+            paths = [row_path(p) for p in cp["k2_plans"]]
+            log(f"    K2 at the captured step's {len(paths)} leaves: "
+                f"{paths}")
+            if len(paths) != leaves or not all(
+                    p.startswith("vector") for p in paths):
+                fail(f"{label}: a leaf's K2 was captured off the vector "
+                     "path, or went unrecorded")
     elif per:
         fail(f"{label}: a kernel launched without a cut layer: {per}")
     evaluate(strat, cp["state"], clients)
@@ -2088,7 +2210,8 @@ def main():
     launches = main_path(dev, clients, args.profile)
 
     phase("phase 6: the private main path, DenseNet-121 at 224^2")
-    launches.update(private_path(dev, clients, args.profile))
+    for key, n in private_path(dev, clients, args.profile).items():
+        launches[key] = launches.get(key, 0) + n
 
     phase("phase 7: LM serving, SmolLM-135M and Mamba2-130M")
     launches.update(lm_path(dev, args.profile))

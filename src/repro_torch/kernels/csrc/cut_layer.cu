@@ -44,15 +44,17 @@
 // kernels only if enough of them are in flight and the per-row work stays
 // small.  One warp a row with lanes striding by 32 elements moved 64 B a
 // load in bf16, read the row twice and paid a 5-step shuffle a row: at
-// D = 64 that set the time (K1 at 27% of its bound in bf16, K3 at 36%).
-// So K1, K3 and K4 share one row-group body and differ only after it:
+// D = 64 that set the time (K1 at 27% of its bound in bf16, K3 at 36%,
+// K2 at 46%).  So all four run on one walk over row groups:
 //   vector path: a group of G lanes takes a row, G a power of two from 1
 //     to 32 (32 / G rows a warp) that the wrapper chooses from D, the
-//     dtype and the pointers (act_compress.vector_plan).  Each lane issues
-//     all its 16-byte loads of the row (4 f32 or 8 bf16, the group's lanes
-//     on neighbouring vectors) before it uses any and keeps them in
-//     registers (load_row): the absmax is a G-wide shuffle reduction, the
-//     row is read once, and then
+//     dtype and the pointers (act_compress.vector_plan).  A vector is 16
+//     bytes of the float side (4 f32 or 8 bf16 values) and its levels the
+//     4 or 8 bytes of q at the same place; the group's lanes take
+//     neighbouring vectors.  K1, K3 and K4 share one front half: each lane
+//     issues all its 16-byte loads of the row before it uses any and keeps
+//     them in registers (load_row), the absmax is a G-wide shuffle
+//     reduction, the row is read once, and then
 //       K1 stores each vector's levels packed (4 or 8 bytes) and the
 //          group's first lane the scale;
 //       K3 stores each vector's roundtrip as one 16-byte vector (the int8
@@ -60,16 +62,23 @@
 //       K4 also loads the row's z (one float4 per f32 vector of x, two
 //          per bf16 one) and w[row] before the shuffle, so the whole row
 //          is in flight at once, and stores 16-byte vectors as K3.
+//     K2 reverses K1's store: each lane issues the loads of all its
+//     vectors' levels (one 4- or 8-byte load each) and of its row's scale
+//     (the group's lanes read the same 4 bytes, one transaction) before
+//     the first multiply, and stores each vector as one 16-byte vector;
+//     it needs no shuffle.  Its levels are narrow loads, which wide
+//     groups serve best, so its plan (act_compress.dequantize_plan) takes
+//     about 2 vectors a lane where K1's takes about 4.
 //     A block of 256 threads takes 256 / G rows, and at most 2^16 blocks
 //     walk over the rows with a grid stride: the grid comes from the plan
 //     alone, so a launch can be captured in a CUDA graph (the plan depends
 //     on the pointers, which stay the same at every replay of the graph's
 //     pool).  It needs D a multiple of the vector, x, out and z on 16-byte
-//     boundaries (K1's q on a vector's levels), and rows of at most 32 x
-//     8 vectors (D <= 1024 f32, 2048 bf16);
-//   general path: any D and alignment, one warp a row, the row read twice
-//     (the second pass finds it in L1), lanes striding over it; K2 always
-//     runs so.
+//     boundaries, q on a vector's levels, and rows of at most 32 x 8
+//     vectors (D <= 1024 f32, 2048 bf16);
+//   general path: any D and alignment, one warp a row, lanes striding
+//     over it (K1, K3 and K4 read the row twice: the second pass finds it
+//     in L1).
 // The wrapper chooses the path from the shape and the pointers; the entry
 // point refuses a plan the vector path cannot take.  Row offsets are
 // 64-bit on both paths, for x, z, q and out.
@@ -109,7 +118,7 @@ __device__ __forceinline__ float quant_level(float x, float scale) {
   return fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.f), 127.f);
 }
 
-// ---- the vector path (K1, K3, K4) ---------------------------------------
+// ---- the vector path (K1-K4) -------------------------------------------
 
 constexpr int kVecThreads = 256;
 constexpr int kMaxVecs = 8;           // act_compress.MAX_VECS
@@ -262,6 +271,68 @@ __global__ void __launch_bounds__(kVecThreads)
       }
     }
     if (g.gl == 0) scale[g.row()] = s;
+  }
+}
+
+// The levels of one vector of T: 4 bytes of q for 4 f32 values, 8 for 8
+// bf16 ones (what store_levels writes), and their values as floats
+// (exact: each byte sign-extended, then converted).
+template <typename T>
+struct Levels;
+template <>
+struct Levels<float> {
+  using type = uint32_t;
+};
+template <>
+struct Levels<__nv_bfloat16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ void unpack_levels(uint32_t w, float* f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = static_cast<float>(static_cast<int8_t>(w >> (8 * i)));
+}
+__device__ __forceinline__ void unpack_levels(const uint2& w, float* f) {
+  unpack_levels(w.x, f);
+  unpack_levels(w.y, f + 4);
+}
+
+// K2: each vector's levels times the row's scale, stored as one 16-byte
+// vector of T.  No reduction, so a lane whose row lies past the last
+// simply skips it.
+template <typename T, int V>
+__global__ void __launch_bounds__(kVecThreads)
+    dequantize_vec_kernel(const int8_t* __restrict__ q,
+                          const float* __restrict__ scale,
+                          T* __restrict__ out, long long rows, int d,
+                          int glog) {
+  using Vec = Vec16<T>;
+  using L = typename Levels<T>::type;
+  const int nvec = d / Vec::kN;
+  for (RowGroups g(rows, glog); g.more(); g.next()) {
+    if (!g.live()) continue;
+    const long long row = g.row();
+    const L* qr = reinterpret_cast<const L*>(q + row * d);
+    L lv[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {  // all loads before the first use
+      const int j = g.vec(k);
+      lv[k] = j < nvec ? __ldg(qr + j) : L{};
+    }
+    const float s = __ldg(scale + row);
+    uint4* orow = reinterpret_cast<uint4*>(out + row * d);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = g.vec(k);
+      if (j < nvec) {
+        float f[Vec::kN];
+        unpack_levels(lv[k], f);
+#pragma unroll
+        for (int e = 0; e < Vec::kN; ++e) f[e] = __fmul_rn(f[e], s);
+        orow[j] = Vec::pack(f);
+      }
+    }
   }
 }
 
@@ -489,6 +560,28 @@ int quantize_as(const void* x, void* q, void* scale, long long rows, int d,
 }
 
 template <typename T>
+int dequantize_as(const void* q, const void* scale, void* out, long long rows,
+                  int d, int group, int vecs, cudaStream_t st) {
+  const int8_t* qt = static_cast<const int8_t*>(q);
+  const float* sf = static_cast<const float*>(scale);
+  T* ot = static_cast<T*>(out);
+  if (vecs == 0) {
+    dequantize_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(qt, sf, ot,
+                                                              rows, d);
+    return cudaGetLastError();
+  }
+  const int glog = plan_glog<T>(d, group, vecs);
+  if (glog < 0 || !aligned(q, Vec16<T>::kN) || !aligned(out, 16))
+    return cudaErrorInvalidValue;
+  with_vecs(vecs, [&](auto v) {
+    dequantize_vec_kernel<T, decltype(v)::value>
+        <<<vec_grid(rows, glog), kVecThreads, 0, st>>>(qt, sf, ot, rows, d,
+                                                        glog);
+  });
+  return cudaGetLastError();
+}
+
+template <typename T>
 int roundtrip_as(const void* x, void* out, long long rows, int d, int group,
                  int vecs, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
@@ -537,7 +630,8 @@ int noise_roundtrip_as(const void* x, const void* z, const void* w, void* out,
 // 0 when the launch was accepted, a cudaError_t otherwise (an unknown dtype
 // code, or a vector plan the rows or pointers cannot take, returns
 // cudaErrorInvalidValue without launching).  group, vecs: the vector
-// path's plan (act_compress.vector_plan), or vecs = 0 for the general path.
+// path's plan (act_compress.vector_plan; K2's dequantize_plan), or vecs = 0
+// for the general path.
 extern "C" {
 
 // K1
@@ -551,21 +645,16 @@ int cut_quantize(const void* x, void* q, void* scale, long long rows, int d,
   return cudaErrorInvalidValue;
 }
 
-// K2 (one warp a row)
+// K2: out of dtype out_dtype
 int cut_dequantize(const void* q, const void* scale, void* out, long long rows,
-                   int d, int out_dtype, void* stream) {
+                   int d, int out_dtype, int group, int vecs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype == kF32)
-    dequantize_kernel<float><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-        static_cast<float*>(out), rows, d);
-  else if (out_dtype == kBF16)
-    dequantize_kernel<__nv_bfloat16><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-        static_cast<__nv_bfloat16*>(out), rows, d);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return dequantize_as<float>(q, scale, out, rows, d, group, vecs, st);
+  if (out_dtype == kBF16)
+    return dequantize_as<__nv_bfloat16>(q, scale, out, rows, d, group, vecs,
+                                        st);
+  return cudaErrorInvalidValue;
 }
 
 // K3

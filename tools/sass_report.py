@@ -2,9 +2,11 @@
 (``-Xptxas -v``) and, from its SASS (``cuobjdump -sass``), the counts of
 the instructions that tell a row kernel's design apart (16-byte loads and
 stores, local loads and stores, the division's ``MUFU.RCP``/``FCHK`` and
-the ``CALL`` to its slow path) and how many of its global loads come
-after the first ``FMNMX`` (the absmax: none where a row's loads are all
-issued before any use) and after the first ``SHFL`` (its reduction).
+the ``CALL`` to its slow path, K2's int-to-float conversions ``I2F``) and
+how many of its global loads come after the first ``FMNMX`` (the absmax:
+none where a row's loads are all issued before any use), after the first
+``SHFL`` (its reduction) and after the first ``FMUL`` (K2's multiply by
+the scale: none where its levels and scale are all loaded first).
 
     python3 tools/sass_report.py [SOURCE] [NAME_FILTER]
 
@@ -25,8 +27,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels import build as B  # noqa: E402
 
-COUNTED = ("LDG.E.128", "STG.E.128", "STG.E.64", "LDL", "STL", "MUFU.RCP",
-           "FCHK", "CALL")
+COUNTED = ("LDG.E.128", "LDG.E.64", "STG.E.128", "STG.E.64", "LDL", "STL",
+           "MUFU.RCP", "FCHK", "CALL", "I2F")
 
 
 def ptxas_info(log: str) -> dict:
@@ -93,14 +95,15 @@ def main(source: str, keep: str) -> int:
         ops = [opcode(s) for s in funcs[name]]
         counts = {k: sum(op.startswith(k) for op in ops) for k in COUNTED}
         loads = [i for i, op in enumerate(ops) if op.startswith("LDG")]
-        after = [sum(i > first(ops, k) for i in loads) for k in ("FMNMX",
-                                                                 "SHFL")]
+        after = [sum(i > first(ops, k) for i in loads)
+                 for k in ("FMNMX", "SHFL", "FMUL")]
         kernel = readable[:readable.index(">(") + 1] if ">(" in readable \
             else readable.split("(")[0]
         print(f"{kernel}: {info.get(name, '?')}; "
               + ", ".join(f"{k} {v}" for k, v in counts.items())
               + f"; of its {len(loads)} LDG, {after[0]} after the first "
-              f"FMNMX, {after[1]} after the first SHFL")
+              f"FMNMX, {after[1]} after the first SHFL, {after[2]} after the "
+              f"first FMUL")
     return 0
 
 
