@@ -86,15 +86,30 @@ Phases, in order; any failure exits nonzero before the last line:
      boundary leaf of the last replay bit-equal to its plain version on
      the graph's own buffers, the wire bytes equal to ``comm_per_epoch``'s
      train legs, ``evaluate``, and both engines' step seconds and peaks;
+ 11. the private grid at full width (it runs before phase 10, which
+     prints the line): DenseNet-121 at 224^2, 5 hospitals of 40 images at
+     batch 16 (two full batches and a kept remainder of 8; SFLv3 drops
+     it) over the fused int8 link, on both engines from the same start
+     under cuDNN's deterministic algorithms: DP-SGD (sigma 1.1, C = 1) on
+     centralized and FL, DP-SGD + cut noise (std 0.5) on SL-AC, SL-AM and
+     SFLv2 (LS) and on SL-AC and SFLv3 (NLS), cut noise alone on SL-AM,
+     and FL with DP and secure aggregation; per row the losses before the
+     first padded step (SFLv3: every loss and param) equal, the padded
+     runs within ``PADDED_BAR``, epsilon per hospital equal, K4/K5/K6
+     launches per stepwise step and per replay (K4 once per leaf and
+     crossing, K5/K6 once per clip), K4 captured with the remainder
+     step's 0/1 row weights, step and replay seconds and peaks, and
+     ``evaluate``;
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
      bf16 rows, ``unet_leaf`` entries and ``bare_ms``, K4 with
-     ``one_hospital``), then the last line ``{"ok": true, "device":
-     {...}}``.
+     ``one_hospital``; launches of every phase), then the last line
+     ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  ``--profile`` adds one profiled fused
 step of each main path, of the U-Net's SFLv3 and SL-AM (LS) in phase 8,
 one replayed step of the private SFLv3 and of SL-AM (f32) in phase 9,
-and one profiled scoring forward of each LM (``torch.profiler``), and
+of the private centralized and SL-AC (LS) rows in phase 11, and one
+profiled scoring forward of each LM (``torch.profiler``), and
 prints the device time by kernel and the busy share (the union of the
 kernels' intervals over the wall time).  The script imports nothing of
 JAX or of the JAX package ``repro``.
@@ -1081,10 +1096,10 @@ def train(method, adapter, clients, batch, device, fuse=True, seed=0,
     if step_seconds is not None:
         step = strat._step
 
-        def timed(*args):
+        def timed(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = step(*args)
+            out = step(*args, **kw)
             torch.cuda.synchronize()
             step_seconds.append(time.perf_counter() - t0)
             return out
@@ -1630,10 +1645,10 @@ def engine_run(engine, method, nls, adapter, clients, batch, dev, precision,
     if engine == "stepwise":
         step = strat._step
 
-        def timed(*args):
+        def timed(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = step(*args)
+            out = step(*args, **kw)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             return out
@@ -1820,6 +1835,257 @@ def compiled_path(dev, clients, profile=False):
     log(f"  launches in phase 9: {launches}")
     if not all(launches.values()):
         fail(f"a kernel of the compiled path never launched: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the private grid at full width
+# ---------------------------------------------------------------------------
+
+PRIVATE_DP = dict(noise_multiplier=1.1, clip_norm=1.0)
+PRIVATE_CUT = dict(PRIVATE_DP, cut_noise_std=0.5)
+# train images per hospital: 2 batches of 16 and, where the method keeps
+# it (drop_remainder=False; SFLv3/v1 refuse it and drop it), one of 8
+PRIVATE_N = 40
+# (method, nls, privacy): DP-SGD on centralized and FL, DP-SGD + cut noise
+# on the split family (LS, and NLS for SL-AC and SFLv3), cut noise alone
+# on SL-AM (K4 then takes the remainder batch's 0/1 row weights; under DP
+# the estimator weights the examples and K4's rows are all 1), and FL
+# with secure aggregation
+PRIVATE_GRID = [("centralized", False, PRIVATE_DP), ("fl", False, PRIVATE_DP),
+                ("sl_ac", False, PRIVATE_CUT), ("sl_am", False, PRIVATE_CUT),
+                ("sflv2_ac", False, PRIVATE_CUT), ("sl_ac", True, PRIVATE_CUT),
+                ("sflv3_ac", True, PRIVATE_CUT),
+                ("sl_am", False, dict(cut_noise_std=0.5)),
+                ("fl", False, dict(PRIVATE_DP, secagg=True))]
+# compiled against stepwise where a batch is padded: the padded step runs
+# its convolutions on 16 rows (8 of them zero) against the stepwise
+# engine's 8, so cuDNN may add in another order, and Adam can turn such a
+# round-off into a move of up to lr (1e-4) where a tiny gradient changes
+# sign; on an NVIDIA H100 the DP rows read 0 and cut noise alone 2.16e-5
+# in a param (PERF.md, Findings)
+PADDED_BAR = 1e-4
+PRIVATE_KERNELS = ("cut_noise_roundtrip", "dp_sqnorms", "dp_scale_accum")
+
+
+@contextlib.contextmanager
+def captured_k4_weights(held):
+    """Append to ``held`` the row-weight tensor of every K4 launch made
+    while a CUDA graph is being captured: the graph's own buffer, which
+    every replay rewrites (holding it keeps the allocator from reusing it
+    inside the capture), so after a run it holds the last replay's row
+    weights."""
+    import torch
+
+    from repro_torch.kernels.cut_fuse import ops
+
+    orig = ops.noise_roundtrip_rows
+
+    def keep(x, z, w):
+        if torch.cuda.is_current_stream_capturing():
+            held.append(w)
+        return orig(x, z, w)
+    ops.noise_roundtrip_rows = keep
+    try:
+        yield
+    finally:
+        ops.noise_roundtrip_rows = orig
+
+
+def private_run(engine, method, nls, privacy, adapter, clients, dev):
+    """One epoch of a private grid row on ``engine`` from seed 0 (the first
+    ``PRIVATE_N`` train images of each hospital, remainder batches kept
+    where the method allows), with ``Strategy.run``; returns the strategy,
+    state, log, the step seconds (stepwise: each step; compiled: each
+    replay), the first call of each body, the run's wall time and peak
+    memory, the private kernels' launches in the run, the K4 row weights
+    captured and the stepwise engine's steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch import optim as O
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.kernels import build as B
+    from repro_torch.privacy import PrivacyConfig
+    from repro_torch.wire import Transport
+
+    split = method not in ("centralized", "fl")
+    keep = not method.startswith(("sflv3", "sflv1"))
+    strat = make_strategy(
+        method, adapter, lambda: O.adam(1e-4), len(clients),
+        transport=Transport("int8", device=dev) if split else None,
+        privacy=PrivacyConfig(**privacy), engine=engine,
+        drop_remainder=not keep, device=dev)
+    calls, step_s, weights = [], [], []
+    if engine == "stepwise":
+        step = strat._step
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args, **kw)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+        strat._step = timed
+    state = strat.setup(0)
+    data = [{k: v[:PRIVATE_N] for k, v in c.train.items()} for c in clients]
+    kernels = {k.symbol: k for k in B.CudaKernel.instances
+               if k.symbol in PRIVATE_KERNELS}
+    before = {n: k.launches for n, k in kernels.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        if engine == "compiled":
+            stack.enter_context(timed_programs(calls))
+            stack.enter_context(captured_k4_weights(weights))
+        t0 = time.perf_counter()
+        state, logs = strat.run(state, data, np.random.default_rng(1), BATCH,
+                                1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if engine == "compiled":
+        step_s = [t for name, t, fresh in calls if name == "step"
+                  and not fresh]
+    return dict(strat=strat, state=state, log=logs[0], step_s=step_s,
+                first=[(name, t) for name, t, fresh in calls if fresh],
+                wall=wall, peak=torch.cuda.max_memory_allocated(),
+                launches={n: k.launches - before[n]
+                          for n, k in kernels.items()},
+                weights=weights)
+
+
+def private_pair(method, nls, privacy, clients, dev, profile=False):
+    """One phase-11 row: the stepwise and the compiled engine from the same
+    start, and their checks.
+
+    Bars: where no batch is padded (SFLv3, which drops the remainder, and
+    every step before a row's first padded step) every loss, and for
+    SFLv3 every param, equal; where one is, losses and params within
+    ``PADDED_BAR``.  Epsilon per hospital equal, and FL's secure
+    aggregation metered the same.  The compiled run is one program
+    captured once per body; each replay launches K5/K6 once per DP clip
+    (once a step, SFLv3 once per hospital) and K4 once per boundary leaf
+    and crossing with cut noise (SFLv3: per hospital too); the stepwise
+    engine the same per step.  Cut noise without DP captures K4 with the
+    remainder batch's 0/1 row weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_models import DENSENET121_PAPER
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.models.cnn import build_densenet
+    from repro_torch.tree import tree_leaves
+
+    adapter = cnn_adapter(build_densenet(DENSENET121_PAPER, nls=nls))
+    label = (f"{method} {'NLS' if nls else 'LS'} "
+             + "+".join(k for k in ("noise_multiplier", "cut_noise_std",
+                                    "secagg") if privacy.get(k)))
+    runs = {}
+    for engine in ("stepwise", "compiled"):
+        runs[engine] = private_run(engine, method, nls, privacy, adapter,
+                                   clients, dev)
+        torch.cuda.empty_cache()
+    sw, cp = runs["stepwise"], runs["compiled"]
+    strat = cp["strat"]
+    progs = list(strat._programs.values())
+    prog = progs[0]
+    per = {k: v for k, v in prog.per_replay.get("step", {}).items()
+           if k in PRIVATE_KERNELS}
+    la, lb = np.asarray(sw["log"].losses), np.asarray(cp["log"].losses)
+    w = sw["log"].weights
+    padded = [i for i, m in enumerate(w or []) if m < BATCH]
+    first = padded[0] if padded else len(la)
+    dl = float(np.abs(la - lb).max())
+    dp, same = 0.0, True
+    for c in range(len(clients)):
+        for a, b in zip(tree_leaves(sw["strat"].params_for_eval(
+                sw["state"], c)), tree_leaves(strat.params_for_eval(
+                cp["state"], c))):
+            same = same and torch.equal(a, b)
+            dp = max(dp, float((a - b).abs().max()))
+    n_steps = sw["log"].steps
+    sw_per = {k: v / n_steps for k, v in sw["launches"].items()}
+    log(f"  {label}: {n_steps} steps ({len(padded)} padded), step seconds "
+        f"stepwise {[round(x, 4) for x in sw['step_s']]}, replayed "
+        f"{[round(x, 4) for x in cp['step_s']]} (first call of each body: "
+        f"{[(n, round(t, 3)) for n, t in cp['first']]}); run wall "
+        f"{sw['wall']:.3f} / {cp['wall']:.3f} s; peak "
+        f"{sw['peak'] / 2**30:.2f} / {cp['peak'] / 2**30:.2f} GiB")
+    log(f"    launches per stepwise step {json.dumps(sw_per)}, per replay "
+        f"{json.dumps(per)}; |loss diff| {dl:.3g} (steps before the first "
+        f"padded one: {first}), |param diff| {dp:.3g}; epsilon "
+        f"{[round(r['epsilon'], 6) for r in strat.privacy_report()]}")
+    if len(progs) != 1 or prog.captures != len(prog.bodies):
+        fail(f"{label}: {len(progs)} programs and {prog.captures} captures")
+    if not np.array_equal(la[:first], lb[:first]) or (
+            not padded and not same):
+        fail(f"{label}: the engines differ where no batch is padded")
+    if padded and max(dl, dp) > PADDED_BAR:
+        fail(f"{label}: the engines differ by more than {PADDED_BAR} over "
+             "the padded steps")
+    if not (np.isfinite(lb).all() and cp["log"].weights == w):
+        fail(f"{label}: non-finite losses or other step weights")
+    if sw["strat"].privacy_report() != strat.privacy_report():
+        fail(f"{label}: epsilon differs between the engines")
+    if privacy.get("noise_multiplier") and not all(
+            0 < r["epsilon"] < math.inf for r in strat.privacy_report()):
+        fail(f"{label}: a hospital lacks a finite epsilon")
+    if privacy.get("secagg") and (
+            sw["strat"].secagg.summary() != strat.secagg.summary()
+            or strat.secagg.rounds != 1):
+        fail(f"{label}: secure aggregation metered differently")
+    hospitals = len(clients) if method.startswith("sflv3") else 1
+    crossings = 2 if nls else 1
+    want = {}
+    if privacy.get("cut_noise_std"):
+        want["cut_noise_roundtrip"] = hospitals * crossings
+    if privacy.get("noise_multiplier"):
+        want.update(dp_sqnorms=hospitals, dp_scale_accum=hospitals)
+    if per != want or {k: v for k, v in sw_per.items() if v} != want:
+        fail(f"{label}: launches per replay {per} and per stepwise step "
+             f"{sw_per}, expected {want}")
+    if privacy.get("cut_noise_std") and not privacy.get("noise_multiplier"):
+        ws = [float(x.min()) for x in cp["weights"]]
+        share = [round(float(x.mean()), 4) for x in cp["weights"]]
+        log(f"    K4 row weights of the last replay (a remainder step): "
+            f"min {ws}, mean {share}")
+        if not ws or not all(m == 0.0 for m in ws):
+            fail(f"{label}: K4 was not captured with the padded rows' 0 "
+                 "weights")
+    evaluate(strat, cp["state"], clients)
+    if profile:
+        prog.t.zero_()
+        profile_call(lambda: prog("step"), f"{label} replayed step",
+                     KERNEL_GROUPS)
+    del runs, sw, cp, strat, progs, prog
+    torch.cuda.empty_cache()
+
+
+def private_grid_path(dev, clients, profile=False):
+    """Phase 11: every row of ``PRIVATE_GRID`` on DenseNet-121 at 224^2, 5
+    hospitals of ``PRIVATE_N`` images at batch 16, over the fused int8
+    link, on both engines from the same start (``private_pair``), under
+    cuDNN's deterministic algorithms.  Returns the launches of K4-K6 in
+    the phase.  ``profile`` profiles one replayed step of the centralized
+    and the SL-AC (LS) rows."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches()
+        for method, nls, privacy in PRIVATE_GRID:
+            private_pair(method, nls, privacy, clients, dev,
+                         profile and method in ("centralized", "sl_ac")
+                         and not nls)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = {k: v.launches for k, v in path_kernels().items()
+                if k in ("K4", "K5", "K6")}
+    log(f"  launches in phase 11: {json.dumps(launches)}")
+    if not all(launches.values()):
+        fail(f"a kernel of the private grid never launched: {launches}")
     return launches
 
 
@@ -2224,6 +2490,10 @@ def main():
     phase("phase 9: the compiled engine against the stepwise one, "
           f"DenseNet-121 at 224^2 and the U-Net at {UNET_SIZE}^2")
     for key, n in compiled_path(dev, clients, args.profile).items():
+        launches[key] += n
+
+    phase("phase 11: the private grid, DenseNet-121 at 224^2")
+    for key, n in private_grid_path(dev, clients, args.profile).items():
         launches[key] += n
     del clients
 

@@ -4,7 +4,8 @@ client sync), ``tree_weighted_mean`` and the default FedAvg rule
 ``WeightedMean``, and their forms over a stacked hospital axis for the
 compiled engine (``stacked_mean_sync``, ``stacked_weighted_mean``), which
 add the hospitals in the same order, so both engines' means are the same
-floats.  The other five rules and ``SecAggregator`` are ROADMAP M9/M8.
+floats; and ``SecAggregator``, FedAvg under ``privacy.secagg``.  The
+other four rules and the registry are ROADMAP M9.
 
 ``prev`` (the pre-round global params) makes a zero-weight round well
 defined: it keeps the previous globals instead of dividing by zero.
@@ -12,6 +13,7 @@ defined: it keeps the previous globals instead of dividing by zero.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.tree import tree_map
@@ -62,3 +64,30 @@ class WeightedMean:
 
     def aggregate_trees(self, trees, weights, prev=None):
         return tree_weighted_mean(trees, weights, prev)
+
+
+class SecAggregator:
+    """Pairwise-mask secure aggregation (``privacy.secagg.SecAgg``) of
+    model params: the locals go to the host in the reference's layout
+    (``interop.params_to_numpy``: HWIO conv weights), so each masked
+    upload is the one the reference's hospital sends for the same model;
+    the server adds them modulo 2^32, and the weighted mean comes back in
+    the port's layout, device and dtype.  A host-side protocol, so the
+    compiled engine runs it after each round's replays instead of a
+    captured round body.  With no weight anywhere the round keeps
+    ``prev``."""
+    name = "secagg"
+
+    def __init__(self, secagg):
+        self.secagg = secagg
+
+    def aggregate_trees(self, trees, weights, prev=None):
+        from repro_torch.interop import params_from_jax, params_to_numpy
+        if float(np.sum(np.asarray(weights, np.float64))) <= 0:
+            return prev if prev is not None else tree_mean(trees)
+        agg = self.secagg.aggregate_weighted(
+            [params_to_numpy(t) for t in trees], [float(w) for w in weights])
+        # walk the locals' tree, so the result keeps their key order
+        return tree_map(lambda old, a: a.to(device=old.device,
+                                            dtype=old.dtype),
+                        trees[0], params_from_jax(agg))

@@ -3,9 +3,11 @@ counterpart of ``repro.core.strategies``.
 
 Every method of ``METHODS`` is built, in the label-sharing (LS) and the
 U-shaped (NLS) cut, on the compiled engine (the default) or the stepwise
-one, in f32 or bf16.  Privacy runs on SFLv3 and on SFLv1 with the LS cut;
-every option still unported raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+one, in f32 or bf16, and with a ``PrivacyConfig``: DP-SGD on every
+method, cut-layer noise on the split family, secure aggregation on FL.
+Every option still unported raises ``NotImplementedError`` naming the
+ROADMAP item that ports it; the privacy options the reference refuses
+raise its ``ValueError``.
 """
 
 from repro_torch.core.partition import cast_adapter
@@ -34,10 +36,11 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
     ``transport`` (``repro_torch.wire.Transport``) compresses the cut-layer
     link of the SL/SFL family; centralized and FL have no cut layer.  It
     must live on the strategy's device.  ``privacy`` (a
-    ``repro_torch.privacy.PrivacyConfig``: DP-SGD and/or cut-layer noise)
-    runs on ``sflv3_*`` and, with the LS cut, ``sflv1_*``.
+    ``repro_torch.privacy.PrivacyConfig``) turns on DP-SGD for any method,
+    cut-layer noise for the SL/SFL family (at every crossing, both under
+    NLS) and pairwise-mask secure aggregation for FL, as in the reference.
     ``drop_remainder=False`` keeps each hospital's final short batch (SL,
-    SFLv2, FL, centralized; SFLv3/v1 refuse it).
+    SFLv2, FL, centralized; SFLv3/v1 refuse it), private or not.
 
     ``device`` None means the CUDA card (raises without one); pass
     ``device="cpu"`` to run the plain PyTorch path on the CPU.
@@ -75,12 +78,6 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
                              "updates")
         if kind not in _SPLIT or schedule not in ("ac", "am"):
             raise ValueError(f"unknown method {method!r}")
-    if privacy is not None and kind not in ("sflv3", "sflv1"):
-        raise NotImplementedError(f"privacy on {method} is not ported yet: "
-                                  "ROADMAP M8 (privacy on the grid)")
-    if privacy is not None and adapter.nls:
-        raise NotImplementedError("privacy with nls=True is not ported "
-                                  "yet: ROADMAP M8 (privacy on the grid)")
     device = resolve_device(device)
     if transport is not None and transport.device != device:
         raise ValueError(f"transport on {transport.device}, strategy on "

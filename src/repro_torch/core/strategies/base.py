@@ -27,9 +27,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.partition import SplitAdapter, detached
+from repro_torch.core.partition import SplitAdapter, as_meta, detached
 from repro_torch.optim import Optimizer, apply_updates
-from repro_torch.privacy.dpsgd import cut_noise_boundary, dp_value_and_grad
+from repro_torch.privacy.dpsgd import (crossings, cut_noise_boundary,
+                                       dp_value_and_grad, first_rows,
+                                       hospital_draws)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -91,6 +93,7 @@ class Strategy:
         self.drop_remainder = drop_remainder
         self._accountants = None
         self._key_step = 0
+        self._spec_cache: dict = {}     # batch shape -> cut noise specs
         # the compiled engine's programs, one per packed layout
         self._programs: dict = {}
 
@@ -177,6 +180,51 @@ class Strategy:
         start = self._key_step
         self._key_step += count
         return np.arange(start + 1, start + count + 1, dtype=np.int64)
+
+    def _cut_specs(self, batch: dict, batch_size: int):
+        """The boundary trees a step crosses (front->middle, and
+        middle->tail under NLS), as meta tensors at the padded batch length
+        ``batch_size`` whatever ``batch``'s own: the shapes the cut noise is
+        drawn at (``privacy.dpsgd``, "Batch length"); None without cut
+        noise."""
+        if self.privacy.cut_noise_std <= 0:
+            return None
+        key = (batch_size, *((k, tuple(v.shape[1:]), str(v.dtype))
+                             for k, v in sorted(batch.items())))
+        if key not in self._spec_cache:
+            full = {k: as_meta(v).new_empty((batch_size, *v.shape[1:]))
+                    for k, v in batch.items()}
+            self._spec_cache[key] = list(
+                self.adapter.boundary_specs(full).values())
+        return self._spec_cache[key]
+
+    def _draws(self, step: int, hospital: int, batch: dict, batch_size: int,
+               dp_spec) -> dict:
+        """One hospital's noise for one step (``privacy.dpsgd.
+        hospital_draws``), seeded by the running step index ``step``: the
+        cut noise drawn at ``batch_size`` rows and cut to ``batch``'s (a
+        short remainder batch takes the first rows), the DP noise of
+        ``dp_spec``'s shapes (the tree the DP step differentiates)."""
+        d = hospital_draws(self.privacy, step, hospital,
+                           self._cut_specs(batch, batch_size), dp_spec,
+                           self.device)
+        rows = len(next(iter(batch.values())))
+        return d if rows == batch_size else first_rows(d, rows)
+
+    def _program_draw(self, packed, dp_spec, hospital=None):
+        """The ``draw(key_index, row)`` a keyed compiled program fills its
+        noise buffers with before each step (None unkeyed): ``_draws`` for
+        the hospital the host row of the step table names (``row[1]``),
+        or ``hospital``, at the packed batch length."""
+        if not self._keyed:
+            return None
+        example = {k: v[0, 0] for k, v in packed.batches.items()}
+
+        def draw(i, row):
+            return self._draws(i, int(row[1]) if hospital is None
+                               else hospital, example, packed.batch_size,
+                               dp_spec)
+        return draw
 
     def _dp_account(self, client_idx, n_samples, batch_size, count=1):
         """Record ``count`` DP mechanism applications on hospital
@@ -267,22 +315,38 @@ def _client_params(adapter, cp, sp):
     return params
 
 
-def full_step_fn(adapter: SplitAdapter, opt: Optimizer):
+def full_step_fn(adapter: SplitAdapter, opt: Optimizer, privacy=None):
     """Step over ALL segments jointly (centralized, FL local training):
-    ``step(params, opt_state, batch, weights=None) -> (params, opt_state,
-    loss)``, the loss detached; ``weights`` (B,) masks the padding rows of
-    a pad-and-mask remainder batch out of the loss."""
-    def step(params, opt_state, batch, weights=None):
-        p = detached(params, True)
-        loss = adapter.full_loss(p, batch, weights=weights)
-        g, = _grad_trees(loss, p)
+    ``step(params, opt_state, batch, weights=None, draws=None) -> (params,
+    opt_state, loss)``, the loss detached; ``weights`` (B,) masks the
+    padding rows of a pad-and-mask remainder batch out of the loss.
+
+    With DP-SGD (``privacy.dp_enabled``) the gradient is
+    ``privacy.dpsgd``'s estimator over the per-example gradients of the
+    whole model (K5/K6 for the clip), ``weights`` weighting the examples
+    inside it, and ``draws`` is the step's ``hospital_draws`` (its ``"dp"``
+    tree the pre-drawn gradient noise)."""
+    if privacy is None or not privacy.dp_enabled:
+        def step(params, opt_state, batch, weights=None, draws=None):
+            p = detached(params, True)
+            loss = adapter.full_loss(p, batch, weights=weights)
+            g, = _grad_trees(loss, p)
+            updates, opt_state = opt.update(g, opt_state)
+            return apply_updates(params, updates), opt_state, loss.detach()
+        return step
+
+    vg = dp_value_and_grad(lambda p, b, e: adapter.full_loss(p, b), privacy)
+
+    def dp_step(params, opt_state, batch, weights=None, draws=None):
+        loss, g = vg(params, batch, noise=draws and draws["dp"],
+                     weights=weights)
         updates, opt_state = opt.update(g, opt_state)
         return apply_updates(params, updates), opt_state, loss.detach()
-    return step
+    return dp_step
 
 
 def split_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
-                  opt_server: Optimizer, transport=None):
+                  opt_server: Optimizer, transport=None, privacy=None):
     """SL/SFLv2 step: the joint gradient through one hospital's client
     segment(s) and the server (numerically the paper's two-hop backprop;
     the hops are the transfers ``core.comm`` accounts).  With a
@@ -290,24 +354,63 @@ def split_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     segment trains on what crossed the wire.
 
     ``step(client_params, server_params, c_opt, s_opt, batch,
-    weights=None)`` returns the updated ``(client_params, server_params,
-    c_opt, s_opt, loss)``; ``weights`` as in ``full_step_fn``.
+    weights=None, draws=None)`` returns the updated ``(client_params,
+    server_params, c_opt, s_opt, loss)``; ``weights`` as in
+    ``full_step_fn``, ``draws`` the step's ``hospital_draws``.
+
+    With cut-layer noise every crossing (front->middle, and middle->tail
+    under NLS) adds its own draws after the codec (one K4 launch per leaf
+    over the fused int8 link).  Without DP-SGD ``weights`` weight both the
+    loss and the cut noise (a padded row ships clean); with DP-SGD the
+    estimator clips the per-example gradient of the joint ``{"c": client
+    tree, "s": server}`` and weights the examples itself, so the boundary
+    and the inner loss take no weights (the reference's rule).
     """
     boundary = transport.boundary if transport is not None else None
+    noised = None
+    if privacy is not None and privacy.cut_noise_std > 0:
+        noised = cut_noise_boundary(
+            boundary, transport.fused_codec if transport is not None
+            else None)
 
-    def step(client_params, server_params, c_opt, s_opt, batch,
-             weights=None):
-        cp = detached(client_params, True)
-        sp = detached(server_params, True)
-        loss = adapter.full_loss(_client_params(adapter, cp, sp), batch,
-                                 boundary=boundary, weights=weights)
-        gc, gs = _grad_trees(loss, cp, sp)
+    def update(client_params, server_params, c_opt, s_opt, gc, gs, loss):
         cu, c_opt = opt_client.update(gc, c_opt)
         su, s_opt = opt_server.update(gs, s_opt)
         return (apply_updates(client_params, cu),
                 apply_updates(server_params, su), c_opt, s_opt,
                 loss.detach())
-    return step
+
+    if privacy is None or not privacy.dp_enabled:
+        def step(client_params, server_params, c_opt, s_opt, batch,
+                 weights=None, draws=None):
+            cp = detached(client_params, True)
+            sp = detached(server_params, True)
+            hook = crossings(boundary, noised, draws and draws["cut"],
+                             weights)
+            loss = adapter.full_loss(_client_params(adapter, cp, sp), batch,
+                                     boundary=hook, weights=weights)
+            gc, gs = _grad_trees(loss, cp, sp)
+            return update(client_params, server_params, c_opt, s_opt, gc,
+                          gs, loss)
+        return step
+
+    def loss_fn(both, b, z):
+        return adapter.full_loss(_client_params(adapter, both["c"],
+                                                both["s"]), b,
+                                 boundary=crossings(boundary, noised, z))
+
+    vg = dp_value_and_grad(loss_fn, privacy)
+
+    def dp_step(client_params, server_params, c_opt, s_opt, batch,
+                weights=None, draws=None):
+        # the hospital's cut noise covers its whole batch and enters the
+        # per-example transform as a vmapped input
+        loss, g = vg({"c": client_params, "s": server_params}, batch,
+                     extra=draws and draws["cut"],
+                     noise=draws and draws["dp"], weights=weights)
+        return update(client_params, server_params, c_opt, s_opt, g["c"],
+                      g["s"], loss)
+    return dp_step
 
 
 def _cat(trees):
@@ -329,10 +432,10 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     ``step(clients, server, c_opts, s_opt, batches, draws=None)`` takes
     per-hospital lists of client trees, optimizer states and device
     batches, and with privacy the step's noise, ``privacy.dpsgd.
-    step_draws``' list of per-hospital ``{"cut", "dp"}`` trees (drawn
-    outside, so a captured step reads them from static buffers); it
-    returns the updated ``(clients, server, c_opts, s_opt, losses)``,
-    ``losses`` a detached (n_clients,) tensor.
+    step_draws``' list of per-hospital ``{"cut", "dp"}`` trees (``"cut"``
+    one tree per crossing; drawn outside, so a captured step reads them
+    from static buffers); it returns the updated ``(clients, server,
+    c_opts, s_opt, losses)``, ``losses`` a detached (n_clients,) tensor.
 
     Without DP-SGD each hospital's batch runs through its own front; the
     fronts' outputs are concatenated along the batch axis, so the cut layer
@@ -342,10 +445,11 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     hospitals' rows (GroupNorm and convs are per example, so this equals
     one server pass per hospital).  Under NLS the server's output crosses
     back the same way, one launch per leaf for all hospitals, and each
-    hospital's rows go through its own tail.  The loss is the mean over
+    hospital's rows go through its own tail; with cut-layer noise each
+    crossing adds every hospital's own draws for it.  The loss is the mean
+    over
     hospitals of each hospital's mean loss: its gradient gives the server
-    the mean of
-    the per-hospital server gradients, and each client gradient is
+    the mean of the per-hospital server gradients, and each client gradient is
     rescaled by ``n_clients`` back to that hospital's own, exactly as the
     reference does.
 
@@ -378,15 +482,16 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
         fronts = [adapter.apply_seg("front", cp["front"], adapter.inputs(b),
                                     b, True) for cp, b in zip(cps, batches)]
         sizes = [tree_leaves(f)[0].shape[0] for f in fronts]
+        hook = crossings(boundary, noised, None if noised is None else [
+            _cat([d["cut"][i] for d in draws])
+            for i in range(len(draws[0]["cut"]))])
         h = _cat(fronts)
-        if noised is not None:
-            h = noised(h, _cat([d["cut"] for d in draws]))
-        elif boundary is not None:
-            h = boundary(h)
+        if hook is not None:
+            h = hook(h)
         h = adapter.apply_seg("middle", sp, h, joint, True)
         if adapter.nls:
-            if boundary is not None:
-                h = boundary(h)
+            if hook is not None:
+                h = hook(h)
             outs = [adapter.apply_seg("tail", cp["tail"], o, b, True)
                     for cp, o, b in zip(cps, _split(h, sizes), batches)]
         else:
@@ -402,9 +507,8 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
 
     def loss_fn(both, b, z):
         params = _client_params(adapter, both["c"], both["s"])
-        return adapter.full_loss(
-            params, b, boundary=boundary if z is None
-            else lambda h: noised(h, z))
+        return adapter.full_loss(params, b,
+                                 boundary=crossings(boundary, noised, z))
 
     vg = dp_value_and_grad(loss_fn, privacy)
 

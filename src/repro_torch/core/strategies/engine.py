@@ -33,10 +33,14 @@ CUDA graph of the step, replayed:
   * **noise outside the graph**: a CUDA generator cannot be re-seeded
     inside a replay, so before each replay of a private step the
     per-(step, hospital, purpose) streams of ``privacy.dpsgd`` (seeded from
-    the step indices ``Strategy._take_key_indices`` reserved up front)
-    fill static noise buffers: both engines draw the same noise;
+    the step indices ``Strategy._take_key_indices`` reserved up front, the
+    hospital read from the host copy of the step table) fill static noise
+    buffers: both engines draw the same noise.  FL reserves indices for
+    real cells only (``key_index_grid``); a masked cell draws nothing;
   * **round boundaries** (the FedAvg weighted mean, the SFLv2/v1 client
-    sync) are a second captured body, replayed once an epoch;
+    sync) are a second captured body, replayed once an epoch; secure
+    aggregation is a host-side protocol and runs on the host instead
+    (``_PackedProgram.run``'s ``end_round``);
   * **analytic accounting**: wire bytes and epsilon of a whole run are
     composed on the host from shapes and counts (``Transport.account(
     count=)``, ``Strategy._dp_account(count=)``).
@@ -302,8 +306,9 @@ class Program:
 class _PackedProgram(Program):
     """A program over one packed epoch layout: the batch buffers (the
     ``[C, NB]`` grid flattened to ``C * NB`` rows), remainder weights, the
-    step table, the losses of one epoch and the strategy's step function
-    (``step_fn``)."""
+    step table (on the device, and its host copy ``rows``), the losses of
+    one epoch, the noise buffers of a private step (``draws``) and the
+    strategy's step function (``step_fn``)."""
 
     def __init__(self, strategy, packed: PackedEpoch, table, loss_shape):
         super().__init__(strategy.device)
@@ -319,10 +324,11 @@ class _PackedProgram(Program):
         self.ex_w = (None if packed.ex_weights is None else
                      torch.from_numpy(packed.ex_weights.reshape(
                          -1, packed.batch_size)).to(dev))
-        self.table = torch.from_numpy(
-            np.ascontiguousarray(table, dtype=np.int64)).to(dev)
+        self.rows = np.ascontiguousarray(table, dtype=np.int64)
+        self.table = torch.from_numpy(self.rows).to(dev)
         self.n_steps = len(table)
         self.losses = torch.zeros(loss_shape, device=dev)
+        self.draws = None
 
     def batch(self, idx):
         """The batch at flat row ``idx`` (a 1-element device index) and its
@@ -336,13 +342,21 @@ class _PackedProgram(Program):
         return self.table.index_select(0, self.t)[0]
 
     def fill_draws(self, draws) -> None:
-        """Copy one step's noise into the noise buffers (keyed steps)."""
-        raise NotImplementedError
+        """Copy one step's noise into the noise buffers: the first step's
+        draws become the buffers, which every capture and replay reads."""
+        if self.draws is None:
+            self.draws = draws
+        else:
+            _copy(self.draws, draws)
 
-    def run(self, batches: dict, draw=None, key_idx=None):
+    def run(self, batches: dict, draw=None, key_idx=None, end_round=None):
         """Step every epoch of ``batches`` (``pack_run``'s ``[E, C, NB, B,
-        ...]`` arrays); a keyed program fills its noise buffers with
-        ``draw(key_idx[e][s])`` before step ``s`` of epoch ``e``.  Returns
+        ...]`` arrays).  A keyed program fills its noise buffers with
+        ``draw(key_idx[e][s], rows[s])`` before step ``s`` of epoch ``e``,
+        ``rows[s]`` the host row of the step table (which names the step's
+        hospital: no device read inside the step); a key index of 0 (a
+        masked FL cell) draws nothing.  Each epoch ends in the round body,
+        if the program has one, then ``end_round()``, if given.  Returns
         the ``[E, *loss_shape]`` device losses."""
         n_epochs = next(iter(batches.values())).shape[0]
         out = torch.empty((n_epochs, *self.losses.shape), device=self.device)
@@ -352,12 +366,16 @@ class _PackedProgram(Program):
                     batches[k][e].reshape(buf.shape))))
             self.t.zero_()
             for s in range(self.n_steps):
-                if draw is not None:
-                    self.fill_draws(draw(int(key_idx[e][s])))
+                i = 0 if draw is None else int(key_idx[e][s])
+                if i or (draw is not None and self.draws is None):
+                    # a masked first cell still makes the buffers
+                    self.fill_draws(draw(i, self.rows[s]))
                 self("step")
             out[e].copy_(self.losses)
             if "round" in self.bodies:
                 self("round")
+            if end_round is not None:
+                end_round()
         return out
 
 
@@ -373,7 +391,8 @@ class SeqProgram(_PackedProgram):
 
     def _step(self):
         batch, w = self.batch(self.row()[0:1])
-        p, s, loss = self.step_fn(self.params, self.opt, batch, w)
+        p, s, loss = self.step_fn(self.params, self.opt, batch, w,
+                                  self.draws)
         _copy(self.params, p)
         _copy(self.opt, s)
         self.losses.index_copy_(0, self.t, loss.reshape(1))
@@ -396,15 +415,20 @@ class FLProgram(_PackedProgram):
     client-major.  A hospital's first step starts from the global params
     with a fresh Adam; a masked (padding) step is a no-op; the last params
     of each hospital land in its row of the stacked locals, and the round
-    body replaces the global params by their data-size-weighted mean."""
+    body replaces the global params by their data-size-weighted mean
+    (``in_graph_round``; under secure aggregation ``host_round`` does the
+    round on the host instead)."""
 
     bodies = ("step", "round")
 
-    def __init__(self, strategy, packed: PackedEpoch, state):
+    def __init__(self, strategy, packed: PackedEpoch, state,
+                 in_graph_round: bool = True):
         C, NB = packed.mask.shape
         rows = [(c * NB + b, c, int(packed.mask[c, b]), int(b == 0))
                 for c in range(C) for b in range(NB)]
         super().__init__(strategy, packed, rows, (C * NB,))
+        if not in_graph_round:
+            self.bodies = ("step",)
         opt = strategy._opt
         self.n_samples = list(packed.n_samples)
         self.glob = _clone(state["params"])
@@ -419,7 +443,7 @@ class FLProgram(_PackedProgram):
         first, valid = row[3].bool(), row[2].bool()
         p_in = tree_select(first, self.glob, self.local)
         s_in = tree_select(first, self.fresh, self.local_opt)
-        p, s, loss = self.step_fn(p_in, s_in, batch, w)
+        p, s, loss = self.step_fn(p_in, s_in, batch, w, self.draws)
         p = tree_select(valid, p, p_in)
         _copy(self.local, p)
         _copy(self.local_opt, tree_select(valid, s, s_in))
@@ -429,6 +453,14 @@ class FLProgram(_PackedProgram):
 
     def _round(self):
         _copy(self.glob, stacked_weighted_mean(self.locals, self.n_samples))
+
+    def host_round(self, aggregate) -> None:
+        """The round on the host instead (secure aggregation): the global
+        params become ``aggregate(locals, n_samples, prev=glob)`` of the
+        hospitals' unstacked locals."""
+        locals_ = [tree_map(lambda x, c=c: x[c], self.locals)
+                   for c in range(len(self.n_samples))]
+        _copy(self.glob, aggregate(locals_, self.n_samples, prev=self.glob))
 
     def carry(self):
         return [self.t, self.losses, *tree_leaves(
@@ -444,9 +476,11 @@ class FLProgram(_PackedProgram):
 class InterleavedProgram(_PackedProgram):
     """SL and SFLv2: one sequential server in ``schedule_array`` order.
     Each step gathers the active hospital's client tree and Adam state
-    from the stacked buffers by device index, runs the split step and
-    scatters them back; ``sync`` adds the SFLv2 round body (every hospital
-    takes the plain mean of the client trees)."""
+    from the stacked buffers by device index, runs the split step (a
+    private one with the noise buffers, drawn on the host for the
+    hospital of the table's host row) and scatters them back; ``sync``
+    adds the SFLv2 round body (every hospital takes the plain mean of the
+    client trees)."""
 
     def __init__(self, strategy, packed: PackedEpoch, state, sched,
                  sync: bool):
@@ -466,7 +500,7 @@ class InterleavedProgram(_PackedProgram):
         c = row[1:2]
         cp, sp, co, so, loss = self.step_fn(
             tree_take(self.clients, c), self.server,
-            tree_take(self.c_opts, c), self.s_opt, batch, w)
+            tree_take(self.c_opts, c), self.s_opt, batch, w, self.draws)
         tree_put(self.clients, c, cp)
         tree_put(self.c_opts, c, co)
         _copy(self.server, sp)
@@ -521,13 +555,6 @@ class SyncProgram(_PackedProgram):
         self.c_opts = [_clone(co) for co in state["c_opts"]]
         self.server = _clone(state["server"])
         self.s_opt = _clone(state["s_opt"])
-        self.draws = None
-
-    def fill_draws(self, draws):
-        if self.draws is None:
-            self.draws = draws
-        else:
-            _copy(self.draws, draws)
 
     def _step(self):
         row = self.row()
@@ -564,6 +591,17 @@ class SyncProgram(_PackedProgram):
                                            _clone(self.s_opt))
 
 
+def key_index_grid(strategy, packed: PackedEpoch) -> np.ndarray:
+    """``[C, NB]`` step indices of FL's grid in client-major stepwise
+    order, reserved from the strategy's running counter for the real cells
+    only; a masked cell keeps 0 and draws nothing."""
+    grid = np.zeros((len(packed.n_batches), packed.nb_max), np.int64)
+    if strategy._keyed:
+        for c, nb in enumerate(packed.n_batches):
+            grid[c, :nb] = strategy._take_key_indices(nb)
+    return grid
+
+
 def program_for(strategy, kind, packed: PackedEpoch, build):
     """The strategy's program of this packed layout, built by ``build()``
     the first time (one capture per program, none per epoch or run)."""
@@ -576,5 +614,6 @@ def program_for(strategy, kind, packed: PackedEpoch, build):
 
 
 __all__ = ["PackedEpoch", "pack_epoch", "pack_run", "empty_run",
-           "client_major_log", "scheduled_log", "Program", "SeqProgram",
+           "client_major_log", "scheduled_log", "key_index_grid",
+           "Program", "SeqProgram",
            "FLProgram", "InterleavedProgram", "SyncProgram", "program_for"]

@@ -10,6 +10,11 @@ synchronization").  The server segment and its Adam state are shared and
 updated one hospital-batch at a time in schedule order, never batched over
 hospitals: that would break the sequential Adam semantics of the shared
 server (DESIGN.md §9).
+
+With privacy each step draws its hospital's noise from that hospital's
+streams (``Strategy._draws``): cut-layer noise at every crossing and/or
+DP-SGD on the joint client + server gradient, and the hospital's
+accountant composes its own steps.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ class SplitLearning(Strategy):
 
     def _make_step(self):
         return split_step_fn(self.adapter, self._opt_c, self._opt_s,
-                             self.transport)
+                             self.transport, self.privacy)
 
     def _client_tree(self, params):
         t = {"front": params["front"]}
@@ -72,13 +77,18 @@ class SplitLearning(Strategy):
         client_steps = [0] * self.n_clients
         for c, b in order:
             host = batches[c][b]
+            draws = (self._draws(self._next_step(), c, host, batch_size,
+                                 {"c": state["clients"][c],
+                                  "s": state["server"]})
+                     if self._keyed else None)
             (state["clients"][c], state["server"], state["c_opts"][c],
              state["s_opt"], loss) = self._step(
                 state["clients"][c], state["server"], state["c_opts"][c],
-                state["s_opt"], self.to_device(host))
+                state["s_opt"], self.to_device(host), draws=draws)
             losses.append(loss)
             loss_w.append(len(host["label"]))
             client_steps[c] += 1
+            self._dp_account(c, len(client_data[c]["label"]), batch_size)
             if self.transport is not None:
                 self.transport.account(self.adapter, host)
         if order:
@@ -95,11 +105,15 @@ class SplitLearning(Strategy):
         batches, packed = ENG.pack_run(client_data, batch_size, rng,
                                        n_epochs, self.drop_remainder)
         sched = schedule_array(self.schedule, packed.n_batches)
+        key_idx = [self._take_key_indices(len(sched)) if self._keyed
+                   else None for _ in range(n_epochs)]
         prog = ENG.program_for(
             self, "interleaved", packed, lambda: ENG.InterleavedProgram(
                 self, packed, state, sched, self._syncs_clients))
         prog.load(state)
-        losses = prog.run(batches).cpu().numpy()
+        draw = self._program_draw(packed, {"c": state["clients"][0],
+                                           "s": state["server"]})
+        losses = prog.run(batches, draw, key_idx).cpu().numpy()
         prog.store(state)
         logs = []
         for e in range(n_epochs):
@@ -110,11 +124,14 @@ class SplitLearning(Strategy):
         return state, logs
 
     def _account_compiled(self, packed, batch_size, n_epochs):
-        """The run's wire bytes from shapes and counts: each hospital's
-        steps metered at their true batch shape (a kept remainder batch at
-        its short one), as the stepwise loop meters them one by one."""
+        """The run's epsilon and wire bytes from shapes and counts: each
+        hospital's steps composed in one accountant call, and metered at
+        their true batch shape (a kept remainder batch at its short one),
+        as the stepwise loop meters them one by one."""
         example = {k: v[0, 0] for k, v in packed.batches.items()}
         for c, nb in enumerate(packed.n_batches):
+            self._dp_account(c, packed.n_samples[c], batch_size,
+                             count=nb * n_epochs)
             if not nb or self.transport is None:
                 continue
             for m, n_steps in zip(*np.unique(packed.step_examples[c],

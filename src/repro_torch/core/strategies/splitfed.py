@@ -13,7 +13,8 @@
   server + the unweighted mean of the client segments each epoch.
 
 Under NLS the client segments are the front and the tail, and the means
-cover both.
+cover both.  With privacy, SFLv2 steps as SL does; SFLv3/v1 draw every
+hospital's noise for the synchronous step, cut noise at every crossing.
 """
 
 from __future__ import annotations
@@ -61,26 +62,19 @@ class SplitFedV3(SplitLearning):
                 "same-shaped batch each step, so drop_remainder=False is "
                 "not representable; use drop_remainder=True")
         self.name = f"sflv3_{schedule}"
-        # the front's output shapes per batch shape (the cut noise's)
-        self._cut_specs: dict = {}
 
     def _make_step(self):
         return sflv3_step_fn(self.adapter, self._opt_c, self._opt_s,
                              self.n_clients, self.transport, self.privacy)
 
-    def _draws(self, step: int, clients, server, batch) -> list:
+    def _step_draws(self, step: int, clients, server, batch) -> list:
         """One step's per-hospital noise (``privacy.dpsgd.step_draws``):
-        cut noise of the shapes of the front's output on ``batch`` (one
-        hospital's), DP noise of ``{"c": client tree, "s": server}``'s."""
-        cut = None
-        if self.privacy.cut_noise_std > 0:
-            key = tuple((k, tuple(v.shape), str(v.dtype))
-                        for k, v in sorted(batch.items()))
-            if key not in self._cut_specs:
-                self._cut_specs[key] = self.adapter.boundary_specs(
-                    batch)["front->middle"]
-            cut = self._cut_specs[key]
-        return step_draws(self.privacy, step, self.n_clients, cut,
+        cut noise of every crossing's shapes on ``batch`` (one hospital's;
+        batches are never short here), DP noise of ``{"c": client tree,
+        "s": server}``'s."""
+        rows = len(next(iter(batch.values())))
+        return step_draws(self.privacy, step, self.n_clients,
+                          self._cut_specs(batch, rows),
                           [{"c": cp, "s": server} for cp in clients],
                           self.device)
 
@@ -101,8 +95,8 @@ class SplitFedV3(SplitLearning):
             # clients that exhausted their data wrap around
             host = [batches[c][s % len(batches[c])]
                     for c in range(self.n_clients)]
-            draws = (self._draws(self._next_step(), state["clients"],
-                                 state["server"], host[0])
+            draws = (self._step_draws(self._next_step(), state["clients"],
+                                      state["server"], host[0])
                      if self._keyed else None)
             (state["clients"], state["server"], state["c_opts"],
              state["s_opt"], losses) = self._step(
@@ -136,8 +130,9 @@ class SplitFedV3(SplitLearning):
         example = {k: v[0, 0] for k, v in packed.batches.items()}
         draw = None
         if self._keyed:
-            def draw(i):
-                return self._draws(i, prog.clients, prog.server, example)
+            def draw(i, row):
+                return self._step_draws(i, prog.clients, prog.server,
+                                        example)
         losses = prog.run(batches, draw, key_idx).cpu().numpy()
         prog.store(state)
         # every hospital takes part in every synchronous step (wrap-around

@@ -24,6 +24,15 @@ gradient noise.  Every random tensor is drawn OUTSIDE ``torch.func.vmap``
 (which refuses random ops): a hospital's cut noise for its whole batch is
 drawn first and enters the per-example transform as a vmapped input.
 
+**Batch length.**  The reference keys each example's cut noise by its
+position (``fold_in``), so a padded remainder batch noises its real rows
+as the short batch does.  A generator's draws depend on how many numbers
+are drawn at once (on the card, Philox offsets follow the launch grid), so
+the port draws the cut noise at the PADDED batch length always
+(``batch_size`` rows): the compiled engine's padded batch uses all of it,
+the stepwise engine's short batch its first rows (``first_rows``).  The
+gradient noise has the params' shapes and no batch axis.
+
 With ``noise_multiplier=0`` and ``clip_norm=inf`` (``force_dp``) the DP
 path reduces to exact per-example-mean gradients — numerically the
 non-private step.
@@ -37,7 +46,7 @@ import math
 import torch
 
 from repro_torch.kernels.dp_clip.ops import clip_accumulate
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 CUT, DP = 1, 2              # the ``purpose`` field of ``stream_seed``
 _M64 = (1 << 64) - 1
@@ -54,7 +63,7 @@ class PrivacyConfig:
     cut_noise_std    : std of Gaussian noise on cut-layer activations
                        (SL/SFL families only; 0 disables).
     secagg           : pairwise-mask secure aggregation for FedAvg uploads
-                       (FL only, not ported yet: ROADMAP M8).
+                       (FL only; ``privacy.secagg``).
     seed             : base seed for all privacy randomness.
     force_dp         : run the DP-SGD machinery even with neutral
                        parameters (noise 0 / clip inf) — used to assert the
@@ -122,11 +131,17 @@ def per_example_grads(loss_fn, params, batch, extra=None):
     a size-1 batch yields that example's own loss and gradient.  ``extra``
     is an optional tree of per-example inputs with a leading B axis (the
     cut noise), split along with the batch.  Returns ((B,) losses, grad tree
-    with a leading B axis).
+    with a leading B axis).  A batch of one example (a remainder batch) is
+    its own per-example batch and takes no ``vmap``: PyTorch's vmapped
+    ``group_norm`` refuses a channels-last input when the vmapped size is
+    one.
     """
     def one(b, e):
         g, v = torch.func.grad_and_value(loss_fn)(params, b, e)
         return v, g
+    if len(tree_leaves(batch)[0]) == 1:
+        v, g = one(batch, extra)
+        return v.reshape(1), tree_map(lambda t: t.unsqueeze(0), g)
     single = lambda t: t.unsqueeze(1)                       # noqa: E731
     extra = None if extra is None else tree_map(single, extra)
     return torch.func.vmap(one, in_dims=(0, None if extra is None else 0))(
@@ -145,30 +160,42 @@ def dp_value_and_grad(loss_fn, cfg: PrivacyConfig):
     """DP analogue of ``value_and_grad``.
 
     ``loss_fn(params, batch, extra) -> scalar``.  Returns ``fn(params,
-    batch, gen=None, extra=None, noise=None) -> (mean loss, noisy clipped
-    mean grad)``: ``(sum_b clip(g_b) + sigma*C*z) / B`` with ``z ~ N(0,
-    I)`` — the standard Abadi et al. DP-SGD estimator.  The noise is
-    ``noise``, a tree of pre-scaled draws of the params' shapes
+    batch, gen=None, extra=None, noise=None, weights=None) -> (mean loss,
+    noisy clipped mean grad)``: ``(sum_b clip(g_b) + sigma*C*z) / B`` with
+    ``z ~ N(0, I)`` — the standard Abadi et al. DP-SGD estimator.  The
+    noise is ``noise``, a tree of pre-scaled draws of the params' shapes
     (``draw_noise``: the compiled engine fills it outside its captured
     step), or else drawn here from ``gen``; the same generator gives the
-    same noise either way.  The reference's ``weights=`` (pad-and-mask
-    rows) is not needed: privacy runs on SFLv3/v1 only, which have no
-    remainder batch.  The clip is K5/K6 (``kernels/dp_clip``); the
-    reference's ``use_kernel`` switch is not ported, since a CUDA tensor
-    always launches the kernels.
+    same noise either way.
+
+    ``weights`` (optional (B,) 0/1, the compiled engine's pad-and-mask
+    rows under ``drop_remainder=False``) scales each per-example gradient
+    BEFORE the clip, so a padded example adds exactly nothing, and the
+    mean divides by ``max(sum(weights), 1)``, the real example count; the
+    loss is the weighted mean.  The clip is K5/K6 (``kernels/dp_clip``) on
+    the weighted rows; the reference's ``use_kernel`` switch is not
+    ported, since a CUDA tensor always launches the kernels.
     """
     noise_std = dp_noise_std(cfg)
 
-    def fn(params, batch, gen=None, extra=None, noise=None):
+    def fn(params, batch, gen=None, extra=None, noise=None, weights=None):
         losses, grads = per_example_grads(loss_fn, params, batch, extra)
         b = losses.shape[0]
+        if weights is None:
+            denom, loss = b, losses.mean()
+        else:
+            w = weights.float()
+            grads = tree_map(
+                lambda g: g * w.reshape((b,) + (1,) * (g.dim() - 1)), grads)
+            denom = torch.clamp_min(w.sum(), 1.0)
+            loss = (losses * w).sum() / denom
         summed, _ = clip_accumulate(grads, float(cfg.clip_norm))
         if noise is None and noise_std > 0:
             noise = draw_noise(params, gen, noise_std)
         if noise is not None:
             summed = tree_map(lambda s, z: s + z.to(s.dtype), summed, noise)
-        grad = tree_map(lambda s, p: (s / b).to(p.dtype), summed, params)
-        return losses.mean(), grad
+        grad = tree_map(lambda s, p: (s / denom).to(p.dtype), summed, params)
+        return loss, grad
 
     return fn
 
@@ -190,58 +217,96 @@ def draw_noise(tree, gen: torch.Generator, std: float):
     return tree_map(lambda l: _leaf_noise(l, gen, std), tree)
 
 
-def step_draws(cfg: PrivacyConfig, step: int, n_clients: int, cut_spec,
-               dp_specs, device) -> list:
-    """Every hospital's noise for one SFLv3 step, ``step`` the running
-    index that seeds the streams: per hospital ``{"cut": draws of
-    cut_spec's shapes or None, "dp": draws of dp_specs[c]'s shapes or
-    None}`` (``dp_specs[c]``: the ``{"c": client tree, "s": server}`` the
-    DP step differentiates).  The stepwise engine draws them before its
-    step, the compiled engine into its static buffers before a replay."""
+def hospital_draws(cfg: PrivacyConfig, step: int, hospital: int,
+                   cut_specs, dp_spec, device) -> dict:
+    """One hospital's noise for one step, ``step`` the running index that
+    seeds its streams: ``{"cut": [draws of each crossing's spec, in
+    crossing order] or None, "dp": draws of dp_spec's shapes or None}``.
+    ``cut_specs`` lists the boundary trees a step crosses (``partition.
+    boundary_specs``' values: front->middle, and middle->tail under NLS) at
+    the padded batch length; the crossings draw one after another from the
+    hospital's cut stream, so each has its own draws.  ``dp_spec`` is the
+    tree DP-SGD differentiates (the params of centralized and FL, ``{"c":
+    client tree, "s": server}`` of the split family).  Both engines draw
+    with this before a step: the stepwise one passes the draws to its step,
+    the compiled one copies them into its static buffers before a
+    replay."""
     dp_std = dp_noise_std(cfg) if cfg.dp_enabled else 0.0
-    out = []
-    for c in range(n_clients):
-        d = {"cut": None, "dp": None}
-        if cfg.cut_noise_std > 0:
-            d["cut"] = draw_noise(
-                cut_spec, make_generator(cfg, step, c, CUT, device),
-                cfg.cut_noise_std)
-        if dp_std > 0:
-            d["dp"] = draw_noise(
-                dp_specs[c], make_generator(cfg, step, c, DP, device), dp_std)
-        out.append(d)
-    return out
+    d = {"cut": None, "dp": None}
+    if cfg.cut_noise_std > 0:
+        d["cut"] = draw_noise(
+            list(cut_specs), make_generator(cfg, step, hospital, CUT, device),
+            cfg.cut_noise_std)
+    if dp_std > 0:
+        d["dp"] = draw_noise(
+            dp_spec, make_generator(cfg, step, hospital, DP, device), dp_std)
+    return d
+
+
+def step_draws(cfg: PrivacyConfig, step: int, n_clients: int, cut_specs,
+               dp_specs, device) -> list:
+    """Every hospital's noise for one SFLv3 step (``hospital_draws`` for
+    each; ``dp_specs[c]`` is hospital ``c``'s ``{"c", "s"}`` tree)."""
+    return [hospital_draws(cfg, step, c, cut_specs, dp_specs[c], device)
+            for c in range(n_clients)]
+
+
+def first_rows(draws: dict, rows: int) -> dict:
+    """A hospital's draws (drawn at the padded batch length) cut to the
+    first ``rows`` examples: the stepwise engine's short remainder batch
+    takes exactly the noise the compiled engine's padded batch puts on its
+    real rows."""
+    if draws["cut"] is None:
+        return draws
+    return {**draws, "cut": tree_map(lambda z: z[:rows], draws["cut"])}
 
 
 def cut_noise_boundary(base_boundary, codec=None):
     """Wrap a transport boundary fn with additive Gaussian cut-layer noise.
 
-    Returns ``fn(tree, noise)``, ``noise`` the tree of pre-scaled draws
-    (``draw_noise``); the noise rides AFTER the codec roundtrip — the
-    client adds it to exactly what ships (the reference draws inside and
-    takes the std here; the port's draws come pre-scaled because ``vmap``
-    refuses random ops).  The reference's ``weights`` (pad-and-mask rows of
-    the compiled engine) are not ported: privacy runs on SFLv3/v1 only,
-    whose batches are never padded (ROADMAP M8).
+    Returns ``fn(tree, noise, weights=None)``, ``noise`` the tree of
+    pre-scaled draws (``draw_noise``); the noise rides AFTER the codec
+    roundtrip — the client adds it to exactly what ships (the reference
+    draws inside and takes the std here; the port's draws come pre-scaled
+    because ``vmap`` refuses random ops).  ``weights`` (optional (B,) 0/1,
+    the compiled engine's pad-and-mask rows) multiplies each example's
+    noise: a padded row gets none, so the shipped payload stays clean
+    there.
 
     With a fusable ``codec`` (``Int8Codec``) the roundtrip AND the add are
-    ONE K4 launch per leaf, in the same f32 op order as the unfused
-    composition (the noise rounded to the activation's dtype, then the
-    add), so fused == unfused bitwise; ``base_boundary`` is then skipped.
+    ONE K4 launch per leaf, its row weight the example's weight repeated
+    over the example's rows, in the same f32 op order as the unfused
+    composition (the noise times its weight, rounded to the activation's
+    dtype, then the add), so fused == unfused bitwise; ``base_boundary`` is
+    then skipped.
     """
     fused_rt = getattr(codec, "fused_noise_roundtrip", None)
 
-    def one(l, z):
+    def one(l, z, weights):
         if fused_rt is not None:
-            return fused_rt(l, z)
+            return fused_rt(l, z, weights)
+        if weights is not None:
+            z = z * weights.float().reshape(
+                (l.shape[0],) + (1,) * (l.dim() - 1))
         return l + z.to(l.dtype)
 
-    def fn(tree, noise):
+    def fn(tree, noise, weights=None):
         if fused_rt is None and base_boundary is not None:
             tree = base_boundary(tree)
-        return tree_map(one, tree, noise)
+        return tree_map(lambda l, z: one(l, z, weights), tree, noise)
 
     return fn
+
+
+def crossings(base_boundary, noised, noise, weights=None):
+    """The ``boundary(tree)`` hook of one step for ``full_loss``: crossing
+    ``i`` adds ``noise[i]`` through ``noised`` (``cut_noise_boundary``), so
+    front->middle and middle->tail each take their own draws.  Without
+    noise it is ``base_boundary``."""
+    if noise is None:
+        return base_boundary
+    it = iter(noise)
+    return lambda tree: noised(tree, next(it), weights)
 
 
 def boundary_with_key(base_boundary, cfg: PrivacyConfig | None, gen,

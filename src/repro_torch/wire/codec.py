@@ -118,12 +118,15 @@ class Int8Codec(Codec):
         from repro_torch.kernels.cut_fuse.ops import roundtrip_boundary
         return roundtrip_boundary(x)
 
-    def fused_noise_roundtrip(self, x, z):
-        """K4: ``roundtrip(x) + z.to(x.dtype)`` in one launch, bit-equal to
-        ``roundtrip`` followed by the separate noise add; straight-through
-        in ``x``."""
+    def fused_noise_roundtrip(self, x, z, weights=None):
+        """K4: ``roundtrip(x) + (z * w).to(x.dtype)`` in one launch, w the
+        (B,) per-example ``weights`` over each example's rows (ones without
+        them), bit-equal to ``roundtrip`` followed by the separate weighted
+        noise add; straight-through in ``x``."""
         from repro_torch.kernels.cut_fuse.ops import cut_noise_roundtrip
-        return cut_noise_roundtrip(x, z)
+        if weights is None:
+            return cut_noise_roundtrip(x, z)
+        return cut_noise_roundtrip(x, z, weights)
 
 
 class TopKCodec(Codec):

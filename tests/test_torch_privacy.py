@@ -232,6 +232,23 @@ def test_private_options_raise_as_in_repro(tiny):
     with pytest.raises(ValueError, match="secure aggregation"):
         make_strategy("sflv3_ac", ta, lambda: TO.adam(1e-3), 3,
                       privacy=PrivacyConfig(secagg=True), device="cpu")
+    for method, priv, match in [
+            ("centralized", dict(secagg=True), "federated uploads"),
+            ("centralized", dict(cut_noise_std=0.1), "no cut layer"),
+            ("fl", dict(cut_noise_std=0.1), "no cut layer"),
+            ("sl_am", dict(secagg=True), "ships activations")]:
+        with pytest.raises(ValueError, match=match):
+            make_strategy(method, ta, lambda: TO.adam(1e-3), 3,
+                          privacy=PrivacyConfig(**priv), device="cpu")
+    # what M8 ported builds: DP on every method, secagg on FL, cut noise
+    # on the split family
+    for method, priv in [("centralized", dict(clip_norm=1.0)),
+                         ("fl", dict(clip_norm=1.0, secagg=True)),
+                         ("sl_ac", dict(cut_noise_std=0.1)),
+                         ("sflv2_ac", dict(clip_norm=1.0))]:
+        assert make_strategy(method, ta, lambda: TO.adam(1e-3), 3,
+                             privacy=PrivacyConfig(**priv),
+                             device="cpu").privacy.any_enabled
     with pytest.raises(ValueError, match="unbounded"):
         PrivacyConfig(noise_multiplier=1.0)
     assert not PrivacyConfig().any_enabled

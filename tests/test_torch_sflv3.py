@@ -250,10 +250,11 @@ def test_port_setup_has_the_reference_layout(runs):
     assert mine["s_opt"]["step"] == 0 and len(mine["c_opts"]) == N_CLIENTS
 
 
-# precision="bf16" (M4) and engine="compiled" (M6) are ported now: their
-# two cases keep their ids and check the options that still raise on
-# those paths, a custom aggregator under bf16 and cut noise on SFLv2 on
-# the compiled engine
+# precision="bf16" (M4), engine="compiled" (M6) and privacy on the whole
+# grid (M8) are ported now: their cases keep their ids and check the
+# options that still raise on those paths (a custom aggregator under bf16
+# or DP, participation under cut noise on SFLv2's compiled engine,
+# observe= under DP with the NLS cut)
 @pytest.mark.parametrize("kw, item", [
     pytest.param(dict(precision="bf16", method="fl", aggregator=object()),
                  "M9", id="kw0-M4"),
@@ -261,12 +262,14 @@ def test_port_setup_has_the_reference_layout(runs):
     (dict(shard=True), "M11"),
     (dict(participation=object()), "M9"),
     pytest.param(dict(engine="compiled", method="sflv2_ac",
-                      privacy=dict(cut_noise_std=0.5)), "M8", id="kw4-M6"),
-    (dict(method="fl", privacy=dict(noise_multiplier=1.0, clip_norm=1.0)),
-     "M8"),
-    (dict(method="sl_ac", nls=True,
-          privacy=dict(noise_multiplier=1.0, clip_norm=1.0)),
-     "M8"),
+                      privacy=dict(cut_noise_std=0.5),
+                      participation=object()), "M9", id="kw4-M6"),
+    pytest.param(dict(method="fl", privacy=dict(noise_multiplier=1.0,
+                                                clip_norm=1.0),
+                      aggregator=object()), "M9", id="kw5-M8"),
+    pytest.param(dict(method="sl_ac", nls=True,
+                      privacy=dict(noise_multiplier=1.0, clip_norm=1.0),
+                      observe=True), "M10", id="kw6-M8"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kw, item):
     from repro_torch.privacy import PrivacyConfig
