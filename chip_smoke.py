@@ -100,6 +100,31 @@ Phases, in order; any failure exits nonzero before the last line:
      crossing, K5/K6 once per clip), K4 captured with the remainder
      step's 0/1 row weights, step and replay seconds and peaks, and
      ``evaluate``;
+ 12. participation and the aggregation rules at full width (it also runs
+     before phase 10), DenseNet-121 at 224^2, batch 16, the fused int8
+     link, the compiled engine, cuDNN's deterministic algorithms: (a) FL,
+     SL-AC, SFLv2-AC and SFLv3-AC on the main path's 5 hospitals (2
+     batches each), 2 rounds, under ``Participation(n_global=5, k=5)``
+     against ``participation=None`` from the same start: losses, params
+     and wire bytes equal bit for bit; (b) 10 hospitals of 32 images,
+     ``Participation(n_global=10, k=4, seed=0)``, 2 rounds: FL with
+     DP-SGD (sigma 1.1, C 1), SL-AM and SFLv3-AC with DP-SGD and cut
+     noise (std 0.5), SFLv2-AC with cut noise alone; per row one capture
+     per program body, the launches per replay (K4 once per crossing,
+     SFLv3 once per slot under DP; K5/K6 once per clip), the hospitals
+     outside a round untouched by it (SFLv2: every hospital holds the
+     sampled mean), epsilon per hospital the accountant's at q K/N and
+     below k=N's, the wire bytes the sampled hospitals' train legs and
+     the client sets the sampled ids, ``evaluate``, and the replay
+     seconds and peak beside the same program without participation on
+     4 hospitals; (c) FL over the 10 hospitals, k=5, 3 rounds, under
+     ``TrimmedMean(0.2)``, ``CoordinateMedian()``,
+     ``StalenessDiscounted(0.5)`` and ``Hierarchical`` over 3 regions,
+     and ``CoordinateMedian()`` again at k=4 (an even count: the mean of
+     the two middle values): the captured round replayed once more on
+     the program's own stacked locals within 1e-6 (of the rows' scale)
+     of the rule in float64 on the host, and the round body's time a
+     replay;
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
      bf16 rows, ``unet_leaf`` entries and ``bare_ms``, K4 with
      ``one_hospital``; launches of every phase), then the last line
@@ -2090,6 +2115,389 @@ def private_grid_path(dev, clients, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: participation and the aggregation rules at full width
+# ---------------------------------------------------------------------------
+
+PART_N = 10                   # hospitals of the K-of-N rows and the rules
+PART_K = 4                    # hospitals sampled a round in the K-of-N rows
+PART_IMAGES = 2 * BATCH       # train images per hospital: 2 batches of 16
+PART_ROUNDS = 2
+# (a) each method under Participation(k=N) against participation=None
+PART_KN = ("fl", "sl_ac", "sflv2_ac", "sflv3_ac")
+# (b) the K-of-N rows: (method, privacy)
+PART_KOFN = [("fl", PRIVATE_DP), ("sl_am", PRIVATE_CUT),
+             ("sflv3_ac", PRIVATE_CUT), ("sflv2_ac", dict(cut_noise_std=0.5))]
+# (c) FL over the PART_N hospitals, RULE_K sampled a round, under each rule
+# (and the median again at an even count, PART_K)
+RULE_K, RULE_ROUNDS = 5, 3
+RULE_REGIONS = (0, 0, 0, 1, 1, 1, 2, 2, 2, 2)
+# the captured round against the rule in float64 on the host: the largest
+# |difference| over the largest |row| of each leaf (every rule's output is
+# a combination of its rows, so their size sets the scale)
+RULE_BAR = 1e-6
+
+
+def rules():
+    """(rule, hospitals sampled a round) of phase 12 (c)."""
+    from repro_torch.core import aggregate as AGG
+    return [(AGG.TrimmedMean(0.2), RULE_K), (AGG.CoordinateMedian(), RULE_K),
+            (AGG.StalenessDiscounted(0.5), RULE_K),
+            (AGG.Hierarchical(RULE_REGIONS), RULE_K),
+            (AGG.CoordinateMedian(), PART_K)]
+
+
+@contextlib.contextmanager
+def round_snapshots(held):
+    """Append to ``held`` a copy of the program's stacked client trees
+    (every hospital's) at the start of each participating round, before
+    its per-round buffers are loaded: the state the previous round left."""
+    import torch
+
+    from repro_torch.core.strategies import engine as ENG
+    from repro_torch.tree import tree_map
+
+    orig = ENG._PackedProgram.load_round
+
+    def load_round(self, *args, **kw):
+        trees = getattr(self, "all_clients", getattr(self, "clients", None))
+        held.append(tree_map(torch.clone, trees))
+        orig(self, *args, **kw)
+    ENG._PackedProgram.load_round = load_round
+    try:
+        yield
+    finally:
+        ENG._PackedProgram.load_round = orig
+
+
+def part_run(method, adapter, clients, dev, part=None, privacy=None,
+             rule=None, rounds=PART_ROUNDS, snapshots=None):
+    """``rounds`` rounds of one method on the compiled engine from seed 0
+    (``PART_IMAGES`` train images a hospital, the split family over the
+    fused int8 link) with ``Strategy.run`` under ``part`` (a
+    ``Participation`` or None) and the aggregation ``rule``; returns the
+    strategy, state, logs, transport, the replay seconds of each body (the
+    first call, with warm-up and capture, apart), wall time and peak.
+    ``snapshots`` gets the client trees at each round's start."""
+    import numpy as np
+    import torch
+
+    from repro_torch import optim as O
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.privacy import PrivacyConfig
+    from repro_torch.wire import Transport
+
+    split = method != "fl"
+    tr = Transport("int8", device=dev) if split else None
+    strat = make_strategy(
+        method, adapter, lambda: O.adam(1e-4), len(clients), transport=tr,
+        privacy=None if privacy is None else PrivacyConfig(**privacy),
+        participation=part, aggregator=rule, device=dev)
+    state = strat.setup(0)
+    data = [{k: v[:PART_IMAGES] for k, v in c.train.items()}
+            for c in clients]
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timed_programs(calls))
+        if snapshots is not None:
+            stack.enter_context(round_snapshots(snapshots))
+        t0 = time.perf_counter()
+        state, logs = strat.run(state, data, np.random.default_rng(1), BATCH,
+                                rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    replays = {}
+    for name, t, fresh in calls:
+        if not fresh:
+            replays.setdefault(name, []).append(t)
+    return dict(strat=strat, state=state, logs=logs, tr=tr, wall=wall,
+                peak=torch.cuda.max_memory_allocated(), replays=replays,
+                first=[(name, round(t, 3)) for name, t, fresh in calls
+                       if fresh])
+
+
+def one_program(label, strat):
+    """The run's one program, captured once per body; fails otherwise."""
+    progs = list(strat._programs.values())
+    if len(progs) != 1 or progs[0].captures != len(progs[0].bodies):
+        fail(f"{label}: {len(progs)} programs, "
+             f"{progs[0].captures if progs else 0} captures")
+    return progs[0]
+
+
+def mean_s(ts) -> str:
+    return f"{sum(ts) / len(ts):.4f}" if ts else "-"
+
+
+def part_k_equals_n(dev, clients):
+    """Phase 12 (a): each method of ``PART_KN`` under ``Participation(k=5)``
+    against ``participation=None`` on 5 hospitals, from the same start:
+    losses, params and wire bytes equal bit for bit."""
+    import torch
+
+    from repro_torch.configs.paper_models import DENSENET121_PAPER
+    from repro_torch.core.participation import Participation
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.models.cnn import build_densenet
+    from repro_torch.tree import tree_leaves
+
+    adapter = cnn_adapter(build_densenet(DENSENET121_PAPER))
+    n = len(clients)
+    for method in PART_KN:
+        runs = [part_run(method, adapter, clients, dev, part)
+                for part in (None, Participation(n_global=n, k=n))]
+        a, b = runs
+        same_loss = [la.losses == lb.losses and la.client_steps
+                     == lb.client_steps for la, lb in zip(a["logs"],
+                                                          b["logs"])]
+        dp, same = 0.0, True
+        for c in range(n):
+            for x, y in zip(tree_leaves(a["strat"].params_for_eval(
+                    a["state"], c)), tree_leaves(b["strat"].params_for_eval(
+                    b["state"], c))):
+                same = same and torch.equal(x, y)
+                dp = max(dp, float((x - y).abs().max()))
+        wire = [r["tr"].bytes_on_wire if r["tr"] else None for r in runs]
+        per = one_program(f"{method} k=N", b["strat"]).per_replay.get(
+            "step", {})
+        replay = [mean_s(r["replays"].get("step", [])) for r in (b, a)]
+        log(f"  (a) {method}: k=N against none: losses equal "
+            f"{all(same_loss)}, params equal {same} (|diff| {dp:.3g}), "
+            f"wire {wire[1]} / {wire[0]}; replay s {replay[0]} / "
+            f"{replay[1]}; per replay {json.dumps(per)}")
+        if not (all(same_loss) and same and wire[0] == wire[1]):
+            fail(f"{method}: Participation(k=N) differs from "
+                 "participation=None")
+        del runs, a, b
+        torch.cuda.empty_cache()
+
+
+def part_k_of_n(dev, clients):
+    """Phase 12 (b): the rows of ``PART_KOFN`` on ``PART_N`` hospitals,
+    ``Participation(k=PART_K, seed=0)``, ``PART_ROUNDS`` rounds; each
+    beside the same program without participation on ``PART_K``
+    hospitals (replay seconds and peaks)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_models import DENSENET121_PAPER
+    from repro_torch.core.comm import comm_per_epoch
+    from repro_torch.core.participation import Participation
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.models.cnn import build_densenet
+    from repro_torch.privacy.accountant import RDPAccountant
+    from repro_torch.tree import stack_trees, tree_leaves
+
+    adapter = cnn_adapter(build_densenet(DENSENET121_PAPER))
+    part = Participation(n_global=PART_N, k=PART_K, seed=0)
+    ids = [set(int(g) for g in part.round_ids(e)) for e in range(PART_ROUNDS)]
+    log(f"  sampled hospitals per round: {[sorted(s) for s in ids]}")
+    for method, privacy in PART_KOFN:
+        label = (f"{method} k={PART_K} of {PART_N} "
+                 + "+".join(k for k in ("noise_multiplier", "cut_noise_std")
+                            if privacy.get(k)))
+        log(f"  (b) {label}:")
+        snaps = []
+        r = part_run(method, adapter, clients, dev, part, privacy,
+                     snapshots=snaps)
+        strat, prog = r["strat"], one_program(label, r["strat"])
+        per = {k: v for k, v in prog.per_replay.get("step", {}).items()}
+        sync3 = method.startswith("sflv3")
+        dp, cut = privacy.get("noise_multiplier"), privacy.get("cut_noise_std")
+        want = {}
+        if cut:
+            want["cut_noise_roundtrip"] = PART_K if sync3 and dp else 1
+        if dp:
+            want.update(dp_sqnorms=PART_K if sync3 else 1,
+                        dp_scale_accum=PART_K if sync3 else 1)
+        if per != want:
+            fail(f"{label}: launches per replay {per}, expected {want}")
+        # hospitals outside a round: untouched (SFLv2: all take the mean)
+        if method != "fl":
+            final = stack_trees(r["state"]["clients"])
+            ends = snaps[1:] + [final]
+            moved = []
+            for e, (s0, s1) in enumerate(zip(snaps, ends)):
+                for g in range(PART_N):
+                    eq = all(torch.equal(x[g], y[g]) for x, y in zip(
+                        tree_leaves(s0), tree_leaves(s1)))
+                    if not eq:
+                        moved.append((e, g))
+            if method.startswith("sflv2"):
+                rows = tree_leaves(final)
+                ok = all(torch.equal(x[g], x[0]) for x in rows
+                         for g in range(PART_N))
+            else:
+                ok = all(g in ids[e] for e, g in moved) and len(moved) == sum(
+                    len(s) for s in ids)
+            log(f"    hospitals moved per round: {moved}")
+            if not ok:
+                fail(f"{label}: a hospital outside its round changed (or "
+                     "SFLv2's sync did not reach every hospital)")
+        # epsilon: the amplified rate q K/N, below the same row at k=N
+        eps = [x["epsilon"] for x in strat.privacy_report()]
+        if dp:
+            # every hospital, sampled or not, composes each round's 2 steps
+            q = min(BATCH / PART_IMAGES, 1.0)
+            at = {}
+            for key, rate in (("K/N", q * part.rate), ("N/N", q)):
+                acc = RDPAccountant(privacy["noise_multiplier"],
+                                    strat.privacy.delta)
+                acc.step(rate, PART_ROUNDS * PART_IMAGES // BATCH)
+                at[key] = acc.summary()["epsilon"]
+            log(f"    epsilon {eps[0]} per hospital (the accountant at q "
+                f"K/N {at['K/N']}, at k=N {at['N/N']})")
+            if not (all(e == at["K/N"] for e in eps)
+                    and at["K/N"] < at["N/N"]):
+                fail(f"{label}: epsilon {eps} is not the accountant's at "
+                     f"q K/N ({at['K/N']}) below k=N's ({at['N/N']})")
+        if method != "fl":
+            example = {k: v[:BATCH] for k, v in clients[0].train.items()}
+            comm = comm_per_epoch(method, strat.adapter, example,
+                                  [PART_IMAGES] * PART_K, [BATCH] * PART_K,
+                                  BATCH, codec=r["tr"].codec)
+            legs = PART_ROUNDS * sum(v for k, v in comm.breakdown.items()
+                                     if k.startswith("train_"))
+            sets = [e.client_set for e in r["tr"].epoch_log]
+            log(f"    wire {r['tr'].bytes_on_wire} bytes (sampled "
+                f"hospitals' train legs {legs}), client sets {sets}")
+            if r["tr"].bytes_on_wire != legs or [set(s) for s in sets] != ids:
+                fail(f"{label}: wire bytes or client sets differ from the "
+                     "sampled hospitals'")
+        if not all(np.isfinite(l.losses).all() for l in r["logs"]):
+            fail(f"{label}: non-finite losses")
+        evaluate(strat, r["state"], clients)
+        base = part_run(method, adapter, clients[:PART_K], dev, None,
+                        privacy)
+        log(f"    replay s {mean_s(r['replays'].get('step', []))} "
+            f"(no participation, {PART_K} hospitals: "
+            f"{mean_s(base['replays'].get('step', []))}); round body "
+            f"{mean_s(r['replays'].get('round', []))}; first calls "
+            f"{r['first']}; peak {r['peak'] / 2**30:.2f} / "
+            f"{base['peak'] / 2**30:.2f} GiB; run wall {r['wall']:.3f} / "
+            f"{base['wall']:.3f} s; per replay {json.dumps(per)}")
+        del r, base, strat, prog, snaps
+        torch.cuda.empty_cache()
+
+
+def host_rule(rule, rows, w, staleness, gids, prev):
+    """``rule`` on one leaf in float64 on the host: ``rows`` [S, ...],
+    ``w``/``staleness``/``gids`` [S], ``prev`` the pre-round leaf."""
+    import numpy as np
+
+    valid = w > 0
+    if not valid.any():
+        return prev
+    name = rule.name
+    if name == "staleness_discounted":
+        w = w * rule.decay ** staleness
+        name = "weighted_mean"
+    if name == "weighted_mean":
+        return np.tensordot(w, rows, 1) / w.sum()
+    if name == "hierarchical":
+        reg = np.asarray(rule.regions)[np.maximum(gids, 0)]
+        means = [np.tensordot(w[reg == r], rows[reg == r], 1)
+                 / w[reg == r].sum() for r in np.unique(reg[valid])]
+        return np.mean(means, axis=0)
+    x = np.sort(rows[valid], axis=0)
+    if name == "coordinate_median":
+        return np.median(x, axis=0)
+    n = len(x)
+    k = min(int(np.floor(rule.trim * n)), max((n - 1) // 2, 0))
+    return x[k:n - k].mean(axis=0)
+
+
+def part_rules(dev, clients):
+    """Phase 12 (c): FL over ``PART_N`` hospitals, ``RULE_ROUNDS`` rounds,
+    under each rule of ``rules()`` with its count sampled a round; then
+    the captured round body replayed once more on the program's own
+    stacked locals and per-round buffers, held within ``RULE_BAR`` of
+    ``host_rule`` in float64 on the same tensors, and timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_models import DENSENET121_PAPER
+    from repro_torch.core.participation import Participation
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.models.cnn import build_densenet
+    from repro_torch.tree import tree_leaves
+
+    adapter = cnn_adapter(build_densenet(DENSENET121_PAPER))
+    for rule, k in rules():
+        part = Participation(n_global=PART_N, k=k, seed=0)
+        label = f"fl {rule.name} k={k}"
+        r = part_run("fl", adapter, clients, dev, part, rule=rule,
+                     rounds=RULE_ROUNDS)
+        prog = one_program(label, r["strat"])
+        round_ms = cuda_ms(lambda: prog("round"), iters=5, warmup=1)
+        prev = [x.clone() for x in tree_leaves(prog.glob)]
+        prog("round")
+        torch.cuda.synchronize()
+        w = prog.agg_w.double().cpu().numpy()
+        st = prog.staleness.double().cpu().numpy()
+        gids = prog.slot_gid.cpu().numpy()
+        worst = 0.0
+        for rows, out, p in zip(tree_leaves(prog.locals),
+                                tree_leaves(prog.glob), prev):
+            rows64 = rows.double().cpu().numpy()
+            want = host_rule(rule, rows64, w, st, gids,
+                             p.double().cpu().numpy())
+            scale = max(float(np.abs(rows64).max()), 1e-30)
+            worst = max(worst, float(np.abs(out.double().cpu().numpy()
+                                            - want).max()) / scale)
+        log(f"  (c) {label}: round body {round_ms:.3f} ms a replay "
+            f"(CUDA events), step replay s "
+            f"{mean_s(r['replays'].get('step', []))}; captured round "
+            f"against float64: {worst:.3g} of the rows' scale "
+            f"(bar {RULE_BAR}) over {int((w > 0).sum())} rows of weight; "
+            f"staleness {st.tolist()}, slot ids "
+            f"{gids.tolist()}; first calls {r['first']}")
+        if worst > RULE_BAR or not all(np.isfinite(l.losses).all()
+                                       for l in r["logs"]):
+            fail(f"{label}: the captured round is off its float64 "
+                 f"host version by {worst:.3g} (bar {RULE_BAR})")
+        evaluate(r["strat"], r["state"], clients)
+        del r, prog
+        torch.cuda.empty_cache()
+
+
+def participation_path(dev, clients):
+    """Phase 12: participation and the aggregation rules on DenseNet-121
+    at 224^2 under cuDNN's deterministic algorithms: (a) k=N against no
+    participation on the main path's 5 hospitals, (b) K of N and (c) the
+    rules on ``PART_N`` synthetic hospitals.  Returns the launches of
+    K3-K6 in the phase."""
+    import torch
+
+    from repro_torch.data.synthetic import make_cxr_clients
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches()
+        part_k_equals_n(dev, clients)
+        t0 = time.perf_counter()
+        many = make_cxr_clients(seed=1, n_clients=PART_N,
+                                train_per_client=PART_IMAGES,
+                                val_per_client=BATCH, test_per_client=BATCH,
+                                image_size=224)
+        log(f"  data: {PART_N} hospitals x {PART_IMAGES} train images at "
+            f"224^2 ({time.perf_counter() - t0:.1f} s)")
+        part_k_of_n(dev, many)
+        part_rules(dev, many)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = {k: v.launches for k, v in path_kernels().items()
+                if k in ("K3", "K4", "K5", "K6")}
+    log(f"  launches in phase 12: {json.dumps(launches)}")
+    if not all(launches.values()):
+        fail(f"a kernel of the participation path never launched: "
+             f"{launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 7: the LM serving slice
 # ---------------------------------------------------------------------------
 
@@ -2494,6 +2902,11 @@ def main():
 
     phase("phase 11: the private grid, DenseNet-121 at 224^2")
     for key, n in private_grid_path(dev, clients, args.profile).items():
+        launches[key] += n
+
+    phase("phase 12: participation and the aggregation rules, "
+          "DenseNet-121 at 224^2")
+    for key, n in participation_path(dev, clients).items():
         launches[key] += n
     del clients
 

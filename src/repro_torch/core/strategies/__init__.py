@@ -4,10 +4,12 @@ counterpart of ``repro.core.strategies``.
 Every method of ``METHODS`` is built, in the label-sharing (LS) and the
 U-shaped (NLS) cut, on the compiled engine (the default) or the stepwise
 one, in f32 or bf16, and with a ``PrivacyConfig``: DP-SGD on every
-method, cut-layer noise on the split family, secure aggregation on FL.
-Every option still unported raises ``NotImplementedError`` naming the
-ROADMAP item that ports it; the privacy options the reference refuses
-raise its ``ValueError``.
+method, cut-layer noise on the split family, secure aggregation on FL;
+with per-round ``participation`` (FL and the split family, compiled
+engine) and, on FL, any registered ``aggregator``.  Every option still
+unported raises ``NotImplementedError`` naming the ROADMAP item that
+ports it; the combinations the reference refuses raise its
+``ValueError``.
 """
 
 from repro_torch.core.partition import cast_adapter
@@ -50,17 +52,37 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
     ``engine="compiled"`` (the default, ``engine.py``) steps packed epochs
     and whole runs with one captured CUDA graph; ``"stepwise"`` calls the
     step from a Python loop.
+
+    ``participation`` (``repro_torch.core.participation.Participation``)
+    samples K of the N enrolled hospitals each round in ``Strategy.run``
+    (fixed-size, Poisson or an explicit schedule; the split family takes
+    fixed-size only): the compiled engine packs each round's cohort into a
+    fixed slot axis and the RDP accountant composes at the amplified rate.
+    Compiled engine only; centralized has no cohort to sample and secure
+    aggregation assumes a fixed one.  ``Participation(n_global=N, k=N)``
+    trains exactly as ``participation=None``.
+
+    ``aggregator`` (FL only) replaces the data-size-weighted FedAvg mean by
+    a rule of ``repro_torch.core.aggregate``: a registered name
+    (``"trimmed_mean"``, ``"coordinate_median"``,
+    ``"staleness_discounted"``, ``"hierarchical"``...) or an
+    ``Aggregator`` (the way to set its parameters); on the compiled engine
+    it runs inside the captured round body.
     """
     unported = [
         (observe is not None, "observe=", "M10 (observability)"),
         (shard, "shard=True", "M11 (placement)"),
-        (participation is not None, "participation=", "M9 (participation)"),
-        (aggregator is not None, "aggregator=", "M9 (aggregation)"),
     ]
     for hit, what, item in unported:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet: ROADMAP "
                                       f"{item}")
+    if participation is not None and method == "centralized":
+        raise ValueError("centralized pools all hospitals; there is no "
+                         "per-round cohort to sample")
+    if aggregator is not None and method != "fl":
+        raise ValueError("aggregator= selects the FedAvg aggregation rule "
+                         f"and applies to fl only, not {method}")
     adapter = cast_adapter(adapter, precision)
     kind, _, schedule = method.rpartition("_")
     if method in ("centralized", "fl"):
@@ -87,8 +109,10 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
               device=device)
     if method == "centralized":
         return Centralized(adapter, opt_factory, n_clients, **kw)
+    kw["participation"] = participation
     if method == "fl":
-        return FedAvg(adapter, opt_factory, n_clients, **kw)
+        return FedAvg(adapter, opt_factory, n_clients, aggregator=aggregator,
+                      **kw)
     return _SPLIT[kind](adapter, opt_factory, n_clients, schedule,
                         transport=transport, **kw)
 

@@ -27,6 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core.participation import Participation, as_participation
 from repro_torch.core.partition import SplitAdapter, as_meta, detached
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.privacy.dpsgd import (crossings, cut_noise_boundary,
@@ -81,9 +82,20 @@ class Strategy:
 
     def __init__(self, adapter: SplitAdapter, opt_factory: Callable[[], Optimizer],
                  n_clients: int, device: torch.device, privacy=None,
-                 engine: str = "compiled", drop_remainder: bool = True):
+                 engine: str = "compiled", drop_remainder: bool = True,
+                 participation=None):
         if engine not in ("stepwise", "compiled"):
             raise ValueError(f"unknown engine {engine!r}")
+        self.participation = as_participation(participation)
+        if self.participation is not None:
+            if self.participation.n_global != n_clients:
+                raise ValueError(
+                    f"participation.n_global={self.participation.n_global} "
+                    f"!= n_clients={n_clients}")
+            if engine != "compiled":
+                raise ValueError(
+                    "participation= requires the compiled engine (the "
+                    "stepwise oracle has no slot-packed hospital axis)")
         self.adapter = adapter
         self.opt_factory = opt_factory
         self.n_clients = n_clients
@@ -102,7 +114,9 @@ class Strategy:
         raise NotImplementedError
 
     def run_epoch(self, state, client_data, rng, batch_size):
-        """One epoch (round); returns ``(state, log)``."""
+        """One epoch (round) of EVERY hospital, as the reference's
+        ``run_epoch`` (participation applies to ``run`` only); returns
+        ``(state, log)``."""
         if self.engine == "compiled":
             return self._run_epoch_compiled(state, client_data, rng,
                                             batch_size)
@@ -111,10 +125,20 @@ class Strategy:
     def _run_epoch_stepwise(self, state, client_data, rng, batch_size):
         raise NotImplementedError
 
-    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs):
-        """``n_epochs`` epochs as one replayed program (``engine.py``);
-        None when no hospital has a batch."""
+    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs,
+                      participation=None):
+        """``n_epochs`` epochs (rounds) as one replayed program
+        (``engine.py``), each round training the hospitals
+        ``participation`` samples (None: every hospital); None when the
+        run trains nothing."""
         raise NotImplementedError
+
+    def _cohort(self, participation):
+        """The rounds' sampling spec: ``participation``, or every hospital
+        every round, ``Participation(k=N)``, which packs, steps and
+        accounts exactly as a run without participation."""
+        return participation or Participation(n_global=self.n_clients,
+                                              k=self.n_clients)
 
     def _run_epoch_compiled(self, state, client_data, rng, batch_size):
         out = self._run_compiled(state, client_data, rng, batch_size, 1)
@@ -137,7 +161,9 @@ class Strategy:
         run up front (the same host shuffles and step-key indices as the
         epoch loop, in the same order) and steps it with one program;
         a run in which no hospital has a batch, and the stepwise engine,
-        run the epochs one after another."""
+        run the epochs one after another.  Under ``participation`` each
+        round trains only its sampled hospitals (a run that trains nothing
+        returns no logs)."""
         if observe is not None:
             raise NotImplementedError("observe= is not ported yet: ROADMAP "
                                       "M10 (observability)")
@@ -145,9 +171,11 @@ class Strategy:
             return state, []
         if self.engine == "compiled":
             out = self._run_compiled(state, client_data, rng, batch_size,
-                                     n_epochs)
+                                     n_epochs, self.participation)
             if out is not None:
                 return out
+            if self.participation is not None:
+                return state, []
         logs = []
         for _ in range(n_epochs):
             state, log = self.run_epoch(state, client_data, rng, batch_size)
@@ -214,8 +242,10 @@ class Strategy:
     def _program_draw(self, packed, dp_spec, hospital=None):
         """The ``draw(key_index, row)`` a keyed compiled program fills its
         noise buffers with before each step (None unkeyed): ``_draws`` for
-        the hospital the host row of the step table names (``row[1]``),
-        or ``hospital``, at the packed batch length."""
+        the hospital the host row of the step table names (``row[1]``,
+        the GLOBAL hospital id, also under participation: a hospital's
+        draws never depend on who else was sampled), or ``hospital``, at
+        the packed batch length."""
         if not self._keyed:
             return None
         example = {k: v[0, 0] for k, v in packed.batches.items()}
@@ -226,9 +256,16 @@ class Strategy:
                                dp_spec)
         return draw
 
-    def _dp_account(self, client_idx, n_samples, batch_size, count=1):
+    def _dp_account(self, client_idx, n_samples, batch_size, count=1,
+                    q_scale=1.0):
         """Record ``count`` DP mechanism applications on hospital
-        ``client_idx``'s data (sampling rate batch_size / n_samples)."""
+        ``client_idx``'s data (sampling rate batch_size / n_samples).
+
+        ``q_scale`` composes per-round client subsampling with the batch
+        rate: under ``Participation`` a hospital takes part in a round with
+        probability K/N (or q), so each round's mechanisms touch any one
+        example with probability ``q_round * q_batch``, the amplified rate
+        the subsampled-Gaussian RDP bound composes at."""
         if not self._dp:
             return
         if self._accountants is None:
@@ -237,7 +274,7 @@ class Strategy:
                 RDPAccountant(self.privacy.noise_multiplier,
                               self.privacy.delta)
                 for _ in range(self.n_clients)]
-        q = min(batch_size / max(n_samples, 1), 1.0)
+        q = min(batch_size / max(n_samples, 1), 1.0) * q_scale
         self._accountants[client_idx].step(q, count)
 
     def privacy_report(self) -> list:

@@ -49,7 +49,8 @@ class Centralized(Strategy):
         losses = torch.stack(losses).cpu().tolist() if losses else []
         return state, EpochLog(losses, len(losses), weights=weights)
 
-    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs):
+    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs,
+                      participation=None):
         pooled = [_pool(client_data)]
         if ENG.empty_run(pooled, batch_size, self.drop_remainder):
             return None

@@ -36,18 +36,32 @@ CUDA graph of the step, replayed:
     the step indices ``Strategy._take_key_indices`` reserved up front, the
     hospital read from the host copy of the step table) fill static noise
     buffers: both engines draw the same noise.  FL reserves indices for
-    real cells only (``key_index_grid``); a masked cell draws nothing;
-  * **round boundaries** (the FedAvg weighted mean, the SFLv2/v1 client
-    sync) are a second captured body, replayed once an epoch; secure
-    aggregation is a host-side protocol and runs on the host instead
-    (``_PackedProgram.run``'s ``end_round``);
+    its real cells only; a masked cell draws nothing;
+  * **round boundaries** (the FedAvg round through the strategy's
+    ``core.aggregate.Aggregator``, the SFLv2/v1 client sync) are a second
+    captured body, replayed once an epoch; a rule that is not
+    ``scan_compatible`` (secure aggregation, a host-side protocol) runs on
+    the host instead (``_PackedProgram.run``'s ``end_round``);
+  * **participation** (``core.participation``): the FL and split-family
+    programs step rounds, each round's sampled hospitals packed into a
+    fixed slot axis (``pack_participation_run``, the reference's packing
+    and rng draws); without ``participation=`` every hospital is sampled
+    every round (``Participation(k=N)``).  Who takes part is per-round
+    DATA: before each round the program copies the round's step table
+    (and its host copy), remainder weights, aggregation weights, staleness
+    and slot -> global id map into static buffers (``load_round``), so one
+    capture of each body serves every round.  The table holds the round's
+    own steps, never more than its buffer (sized by the layout: the
+    full-N schedule or ``NB_N``) and the replay loop runs just those; the
+    hospital column holds the GLOBAL id, which the noise draws read;
   * **analytic accounting**: wire bytes and epsilon of a whole run are
     composed on the host from shapes and counts (``Transport.account(
     count=)``, ``Strategy._dp_account(count=)``).
 
-A whole ``Strategy.run(n_epochs)`` packs every epoch up front, then for
-each epoch copies its batches into the static buffer and replays; the
-losses of the run come back from one device buffer at its end.
+A whole ``Strategy.run(n_epochs)`` packs every round up front, then for
+each round copies its batches and step table into the static buffers and
+replays; the losses of the run come back from one device buffer at its
+end.
 """
 
 from __future__ import annotations
@@ -58,8 +72,7 @@ import gc
 import numpy as np
 import torch
 
-from repro_torch.core.aggregate import (stacked_mean_sync,
-                                        stacked_weighted_mean, tree_mean)
+from repro_torch.core.aggregate import stacked_mean_sync, tree_mean
 from repro_torch.kernels import build as B
 from repro_torch.tree import (stack_trees, tree_leaves, tree_map, tree_put,
                               tree_select, tree_take)
@@ -89,6 +102,12 @@ class PackedEpoch:
     @property
     def nb_max(self) -> int:
         return self.mask.shape[1]
+
+    @property
+    def shapes(self) -> tuple:
+        """(key, per-example shape, dtype) of every batch array."""
+        return tuple((k, tuple(v.shape[3:]), str(v.dtype))
+                     for k, v in self.batches.items())
 
 
 def _client_batch_count(n: int, batch_size: int,
@@ -188,16 +207,140 @@ def scheduled_log(losses, sched: np.ndarray, packed: PackedEpoch):
     return flat, weights
 
 
-def layout_key(packed: PackedEpoch, keys) -> tuple:
+def layout_key(packed, keys) -> tuple:
     """What fixes a program's buffers, step table and constants: the
     hospitals' sample and batch counts, the batch shape and dtypes of
-    ``keys`` and whether remainder batches are kept."""
+    ``keys``, whether remainder batches are kept and, for a
+    ``ParticipationPack`` (counts per global hospital), the slot count:
+    never the sampled ids, so captures do not grow with the rounds."""
     return (tuple(packed.n_samples), tuple(packed.n_batches),
             packed.batch_size,
-            tuple((k, packed.batches[k].shape[3:], str(packed.batches[k]
-                                                       .dtype))
-                  for k in keys),
-            packed.ex_weights is None)
+            tuple(s for s in packed.shapes if s[0] in keys),
+            packed.ex_weights is None, getattr(packed, "n_slots", None))
+
+
+# ---------------------------------------------------------------------------
+# participation: each round's sampled hospitals in a fixed slot axis
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ParticipationPack:
+    """Per-round packing of a participating run (the reference's).
+
+    The hospital axis is ``n_slots`` wide (K for fixed-size sampling).
+    ``slot_gid[e, s]`` maps slot ``s`` of round ``e`` to its global
+    hospital id (-1 for an empty slot: zero weight, all-False mask);
+    ``staleness[e, s]`` counts the rounds that hospital sat out since it
+    last took part (0 when fresh or first seen); ``n_batches``,
+    ``n_samples`` and ``step_examples`` are per GLOBAL hospital.
+    """
+    mask: np.ndarray                    # [E, S, NB] bool
+    ex_weights: np.ndarray | None       # [E, S, NB, B] float32
+    agg_w: np.ndarray                   # [E, S] float32 (data sizes)
+    slot_gid: np.ndarray                # [E, S] int32, -1 = empty slot
+    part_mask: np.ndarray               # [E, N] bool
+    staleness: np.ndarray               # [E, S] float32
+    n_batches: list                     # per global hospital
+    n_samples: list                     # per global hospital
+    step_examples: list                 # per global hospital
+    batch_size: int
+    shapes: tuple                       # (key, example shape, dtype)
+
+    @property
+    def nb_max(self) -> int:
+        return self.mask.shape[2]
+
+    @property
+    def n_slots(self) -> int:
+        return self.mask.shape[1]
+
+    @property
+    def n_global(self) -> int:
+        return self.part_mask.shape[1]
+
+    def epoch(self, e: int, batches: dict) -> PackedEpoch:
+        """Round ``e`` as a ``PackedEpoch`` over the slots (an empty slot
+        has no batch and no sample), ``batches`` the run's arrays."""
+        gid = self.slot_gid[e]
+        nb = [self.n_batches[g] if g >= 0 else 0 for g in gid]
+        return PackedEpoch(
+            {k: v[e] for k, v in batches.items()}, self.mask[e],
+            None if self.ex_weights is None else self.ex_weights[e], nb,
+            [self.step_examples[g] if g >= 0 else [] for g in gid],
+            [self.n_samples[g] if g >= 0 else 0 for g in gid],
+            self.batch_size)
+
+
+def pack_participation_run(client_data, batch_size: int, rng,
+                           n_epochs: int, participation,
+                           drop_remainder: bool = True):
+    """Pack ``n_epochs`` participating rounds into ``[n_epochs, n_slots,
+    nb_max, batch, ...]`` numpy arrays (the reference's packing).
+
+    Every round consumes the data-shuffle ``rng`` for ALL N hospitals in
+    global order, exactly the draws ``pack_run`` makes, and only then
+    fills the slots with the round's sampled hospitals: a hospital's
+    batches depend only on (round, hospital), never on who else was
+    sampled, and ``Participation(k=N)`` packs arrays equal to
+    ``pack_run``'s.  ``nb_max`` is the largest batch count over ALL N
+    hospitals, so the slot grid keeps its shape across rounds.
+    """
+    N = len(client_data)
+    if participation.n_global != N:
+        raise ValueError(f"participation.n_global={participation.n_global} "
+                         f"but {N} hospitals were passed")
+    S = participation.n_slots
+    ns = [len(next(iter(d.values()))) for d in client_data]
+    counts = [_client_batch_count(n, batch_size, drop_remainder)
+              for n in ns]
+    nbs = [c[0] for c in counts]
+    step_examples = [[batch_size] * nb_full + ([rem] if nb > nb_full else [])
+                     for nb, nb_full, rem in counts]
+    NB = max(nbs, default=0)
+    proto = client_data[0]
+    batches = {k: np.zeros((n_epochs, S, NB, batch_size, *v.shape[1:]),
+                           v.dtype) for k, v in proto.items()}
+    mask = np.zeros((n_epochs, S, NB), bool)
+    ex_w = (None if drop_remainder
+            else np.zeros((n_epochs, S, NB, batch_size), np.float32))
+    agg_w = np.zeros((n_epochs, S), np.float32)
+    slot_gid = np.full((n_epochs, S), -1, np.int32)
+    part_mask = np.zeros((n_epochs, N), bool)
+    staleness = np.zeros((n_epochs, S), np.float32)
+    last_seen: dict = {}
+    for e in range(n_epochs):
+        ids = participation.round_ids(e)
+        if len(ids) > S:
+            raise ValueError(f"round {e} sampled {len(ids)} hospitals but "
+                             f"only {S} slots are packed")
+        part_mask[e, ids] = True
+        orders = []
+        for g in range(N):
+            idx = np.arange(ns[g])
+            if rng is not None:
+                rng.shuffle(idx)
+            orders.append(idx)
+        for s, g in enumerate(ids):
+            g = int(g)
+            slot_gid[e, s] = g
+            agg_w[e, s] = ns[g]
+            prev_e = last_seen.get(g)
+            staleness[e, s] = 0.0 if prev_e is None else float(e - prev_e - 1)
+            mask[e, s, :nbs[g]] = True
+            used = nbs[g] * batch_size if drop_remainder else ns[g]
+            for k, v in client_data[g].items():
+                batches[k][e, s].reshape(NB * batch_size,
+                                         *v.shape[1:])[:used] = (
+                    v[orders[g][:used]])
+            if ex_w is not None:
+                for j, m in enumerate(step_examples[g]):
+                    ex_w[e, s, j, :m] = 1.0
+            last_seen[g] = e
+    shapes = tuple((k, tuple(v.shape[1:]), str(v.dtype))
+                   for k, v in proto.items())
+    return batches, ParticipationPack(mask, ex_w, agg_w, slot_gid,
+                                      part_mask, staleness, nbs, ns,
+                                      step_examples, batch_size, shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +484,22 @@ class _PackedProgram(Program):
         """The step table's row of the current step."""
         return self.table.index_select(0, self.t)[0]
 
+    def load_round(self, rows, ex_w=None, **buffers) -> None:
+        """Copy one round in: its step table (the host copy ``rows``, its
+        length the round's step count ``n_steps``, at most the table
+        buffer's), its remainder weights and the named per-round device
+        buffers (``agg_w``, ``staleness``, ``slot_gid``), all outside any
+        graph, so one capture of each body serves every round."""
+        self.rows = np.ascontiguousarray(rows, dtype=np.int64).reshape(
+            -1, self.table.shape[1])
+        self.n_steps = len(self.rows)
+        self.table[:self.n_steps].copy_(torch.from_numpy(self.rows))
+        if ex_w is not None:
+            self.ex_w.copy_(torch.from_numpy(np.ascontiguousarray(
+                ex_w.reshape(self.ex_w.shape))))
+        for name, v in buffers.items():
+            getattr(self, name).copy_(torch.from_numpy(np.asarray(v)))
+
     def fill_draws(self, draws) -> None:
         """Copy one step's noise into the noise buffers: the first step's
         draws become the buffers, which every capture and replay reads."""
@@ -349,22 +508,32 @@ class _PackedProgram(Program):
         else:
             _copy(self.draws, draws)
 
-    def run(self, batches: dict, draw=None, key_idx=None, end_round=None):
+    def run(self, batches: dict, draw=None, key_idx=None, end_round=None,
+            begin_round=None):
         """Step every epoch of ``batches`` (``pack_run``'s ``[E, C, NB, B,
-        ...]`` arrays).  A keyed program fills its noise buffers with
+        ...]`` arrays, or ``pack_participation_run``'s over the slots).
+        ``begin_round(e)``, if given, loads round ``e``'s per-round data
+        (``load_round``) after its batches; then the ``begin`` body runs,
+        if the program has one, and the step body replays once per row of
+        the round's table.  A keyed program fills its noise buffers with
         ``draw(key_idx[e][s], rows[s])`` before step ``s`` of epoch ``e``,
         ``rows[s]`` the host row of the step table (which names the step's
-        hospital: no device read inside the step); a key index of 0 (a
-        masked FL cell) draws nothing.  Each epoch ends in the round body,
-        if the program has one, then ``end_round()``, if given.  Returns
-        the ``[E, *loss_shape]`` device losses."""
+        global hospital: no device read inside the step); a key index of 0
+        (a masked FL cell) draws nothing.  Each epoch ends in the round
+        body, if the program has one, then ``end_round()``, if given.
+        Returns the ``[E, *loss_shape]`` device losses (past a round's
+        ``n_steps``, what an earlier round left)."""
         n_epochs = next(iter(batches.values())).shape[0]
         out = torch.empty((n_epochs, *self.losses.shape), device=self.device)
         for e in range(n_epochs):
             for k, buf in self.batches.items():
                 buf.copy_(torch.from_numpy(np.ascontiguousarray(
                     batches[k][e].reshape(buf.shape))))
+            if begin_round is not None:
+                begin_round(e)
             self.t.zero_()
+            if "begin" in self.bodies:
+                self("begin")
             for s in range(self.n_steps):
                 i = 0 if draw is None else int(key_idx[e][s])
                 if i or (draw is not None and self.draws is None):
@@ -410,27 +579,42 @@ class SeqProgram(_PackedProgram):
         state["params"], state["opt"] = _clone(self.params), _clone(self.opt)
 
 
+def fl_rows(mask, gids) -> list:
+    """FL's step table over a ``[slots, NB]`` grid, slot-major: each
+    cell's (flat batch row, global hospital, valid, first of its slot,
+    slot); an empty slot (gid -1) names hospital 0, all its cells
+    masked."""
+    S, NB = mask.shape
+    return [(s * NB + b, max(int(gids[s]), 0), int(mask[s, b]), int(b == 0),
+             s) for s in range(S) for b in range(NB)]
+
+
 class FLProgram(_PackedProgram):
-    """FedAvg: every hospital's local epoch over the ``[C, NB]`` grid,
-    client-major.  A hospital's first step starts from the global params
+    """FedAvg: every participation slot's local epoch over the ``[S, NB]``
+    grid, slot-major.  A slot's first step starts from the global params
     with a fresh Adam; a masked (padding) step is a no-op; the last params
-    of each hospital land in its row of the stacked locals, and the round
-    body replaces the global params by their data-size-weighted mean
-    (``in_graph_round``; under secure aggregation ``host_round`` does the
-    round on the host instead)."""
+    of each slot land in its row of the stacked locals, and the round body
+    replaces the global params by the strategy's ``Aggregator`` of them
+    under the round's device buffers ``agg_w`` (the data sizes),
+    ``staleness`` and ``slot_gid``.  ``in_graph_round=False`` (secure
+    aggregation) does the round on the host instead (``host_round``)."""
 
     bodies = ("step", "round")
 
     def __init__(self, strategy, packed: PackedEpoch, state,
                  in_graph_round: bool = True):
         C, NB = packed.mask.shape
-        rows = [(c * NB + b, c, int(packed.mask[c, b]), int(b == 0))
-                for c in range(C) for b in range(NB)]
-        super().__init__(strategy, packed, rows, (C * NB,))
+        super().__init__(strategy, packed, fl_rows(packed.mask, range(C)),
+                         (C * NB,))
         if not in_graph_round:
             self.bodies = ("step",)
-        opt = strategy._opt
-        self.n_samples = list(packed.n_samples)
+        opt, dev = strategy._opt, self.device
+        self.agg = strategy._agg
+        self.weights = [float(n) for n in packed.n_samples]
+        self.agg_w = torch.tensor(self.weights, dtype=torch.float32,
+                                  device=dev)
+        self.staleness = torch.zeros((C,), device=dev)
+        self.slot_gid = torch.zeros((C,), dtype=torch.int64, device=dev)
         self.glob = _clone(state["params"])
         self.local = _clone(state["params"])
         self.fresh = opt.init(self.glob)
@@ -447,20 +631,27 @@ class FLProgram(_PackedProgram):
         p = tree_select(valid, p, p_in)
         _copy(self.local, p)
         _copy(self.local_opt, tree_select(valid, s, s_in))
-        tree_put(self.locals, row[1:2], p)
+        tree_put(self.locals, row[4:5], p)
         self.losses.index_copy_(0, self.t, loss.reshape(1))
         self.t.add_(1)
 
     def _round(self):
-        _copy(self.glob, stacked_weighted_mean(self.locals, self.n_samples))
+        _copy(self.glob, self.agg.aggregate(self.locals, self.agg_w,
+                                            self.glob, self.staleness,
+                                            self.slot_gid))
+
+    def load_round(self, rows, ex_w=None, **buffers) -> None:
+        super().load_round(rows, ex_w, **buffers)
+        if "agg_w" in buffers:
+            self.weights = [float(w) for w in buffers["agg_w"]]
 
     def host_round(self, aggregate) -> None:
         """The round on the host instead (secure aggregation): the global
-        params become ``aggregate(locals, n_samples, prev=glob)`` of the
-        hospitals' unstacked locals."""
+        params become ``aggregate(locals, weights, prev=glob)`` of the
+        slots' unstacked locals."""
         locals_ = [tree_map(lambda x, c=c: x[c], self.locals)
-                   for c in range(len(self.n_samples))]
-        _copy(self.glob, aggregate(locals_, self.n_samples, prev=self.glob))
+                   for c in range(len(self.weights))]
+        _copy(self.glob, aggregate(locals_, self.weights, prev=self.glob))
 
     def carry(self):
         return [self.t, self.losses, *tree_leaves(
@@ -473,22 +664,33 @@ class FLProgram(_PackedProgram):
         state["params"] = _clone(self.glob)
 
 
-class InterleavedProgram(_PackedProgram):
-    """SL and SFLv2: one sequential server in ``schedule_array`` order.
-    Each step gathers the active hospital's client tree and Adam state
-    from the stacked buffers by device index, runs the split step (a
-    private one with the noise buffers, drawn on the host for the
-    hospital of the table's host row) and scatters them back; ``sync``
-    adds the SFLv2 round body (every hospital takes the plain mean of the
-    client trees)."""
+def interleaved_rows(sched, nb_max: int, gids) -> list:
+    """SL/SFLv2's step table in ``sched`` order: each step's (flat batch
+    row, global hospital), ``sched`` holding (slot, batch) pairs and
+    ``gids`` the slots' global hospitals."""
+    return [(int(c) * nb_max + int(b), int(gids[int(c)])) for c, b in sched]
 
-    def __init__(self, strategy, packed: PackedEpoch, state, sched,
+
+class InterleavedProgram(_PackedProgram):
+    """SL and SFLv2: one sequential server in schedule order.  Each step
+    gathers the global hospital's client tree and Adam state (row 1 of the
+    step table) from the stacked buffers of all N hospitals by device
+    index, runs the split step (a private one with the noise buffers,
+    drawn on the host for the hospital of the table's host row) and
+    scatters them back; ``sync`` adds the SFLv2 round body (every hospital
+    takes the plain mean of the round's sampled hospitals' client trees,
+    ``slot_gid``).  The batch buffers are one round's slots wide and the
+    step table changes every round (``load_round``): ``capacity`` is the
+    longest a round can be, the full-N schedule's length."""
+
+    def __init__(self, strategy, packed: PackedEpoch, state, capacity: int,
                  sync: bool):
-        NB = packed.nb_max
-        rows = [(int(c) * NB + int(b), int(c)) for c, b in sched]
-        super().__init__(strategy, packed, rows, (len(rows),))
+        super().__init__(strategy, packed, np.zeros((capacity, 2)),
+                         (capacity,))
         if sync:
             self.bodies = ("step", "round")
+        self.slot_gid = torch.zeros((packed.mask.shape[0],),
+                                    dtype=torch.int64, device=self.device)
         self.clients = stack_trees(state["clients"])
         self.c_opts = stack_trees(state["c_opts"])
         self.server = _clone(state["server"])
@@ -509,7 +711,10 @@ class InterleavedProgram(_PackedProgram):
         self.t.add_(1)
 
     def _round(self):
-        _copy(self.clients, stacked_mean_sync(self.clients))
+        rows = tree_map(lambda x: x.index_select(0, self.slot_gid),
+                        self.clients)
+        tree_map(lambda x, m: x.copy_(m[0].expand_as(x)), self.clients,
+                 stacked_mean_sync(rows))
 
     def carry(self):
         return [self.t, self.losses, *tree_leaves(
@@ -533,32 +738,62 @@ class InterleavedProgram(_PackedProgram):
                                            _clone(self.s_opt))
 
 
+def sync_rows(n_batches, nb_max: int, steps: int) -> list:
+    """SFLv3/v1's step table: row ``s`` holds each slot's flat batch row
+    of step ``s`` (a hospital short of batches wraps around)."""
+    return [[c * nb_max + s % nb for c, nb in enumerate(n_batches)]
+            for s in range(steps)]
+
+
 class SyncProgram(_PackedProgram):
-    """SFLv3 and SFLv1: batch-synchronous steps.  Row ``s`` of the table
-    holds each hospital's batch of step ``s`` (hospitals short of batches
-    wrap around), and the step is ``sflv3_step_fn``'s: every hospital's
+    """SFLv3 and SFLv1: batch-synchronous steps over a round's slots.
+    Row ``s`` of the table holds each slot's batch of step ``s``
+    (``sync_rows``), and the step is ``sflv3_step_fn``'s: every slot's
     front crosses the cut in one launch per boundary leaf, and a private
     step runs its K4/K5/K6 inside the graph with the noise read from the
     static buffers ``fill_draws`` fills (the first step's draws become
-    those buffers).  ``sync`` adds SFLv1's round body."""
+    those buffers).
 
-    def __init__(self, strategy, packed: PackedEpoch, state, sync: bool):
-        C, NB = packed.mask.shape
-        steps = packed.nb_max
-        rows = [[c * NB + s % packed.n_batches[c] for c in range(C)]
-                for s in range(steps)]
-        super().__init__(strategy, packed, rows, (steps, C))
-        if sync:
-            self.bodies = ("step", "round")
-        self.n_clients = C
-        self.clients = [_clone(cp) for cp in state["clients"]]
-        self.c_opts = [_clone(co) for co in state["c_opts"]]
+    The client trees and Adam states of all N hospitals persist in
+    stacked buffers: the ``begin`` body gathers the round's sampled
+    hospitals (``slot_gid``) into the step's per-slot buffers, the step
+    runs the round's steps (as many as its cohort's most batches, at most
+    ``capacity``, the largest batch count ``NB_N``), and the round body
+    scatters the slots back and, under SFLv1 (``sync``), puts the slots'
+    mean into every hospital's row.  The client Adam keeps ONE step count
+    for all hospitals (``count``), as the reference's stacked optimizer
+    does: it advances with the rounds' steps whoever is sampled."""
+
+    bodies = ("begin", "step", "round")
+
+    def __init__(self, strategy, packed: PackedEpoch, state, sync: bool,
+                 capacity: int):
+        S = packed.mask.shape[0]
+        super().__init__(strategy, packed, np.zeros((capacity, S)),
+                         (capacity, S))
+        self.n_slots, self.sync = S, sync
+        if S != strategy.n_clients:
+            self.step_fn = strategy._slot_step
+        self.slot_gid = torch.zeros((S,), dtype=torch.int64,
+                                    device=self.device)
+        self.all_clients = stack_trees(state["clients"])
+        self.all_c_opts = stack_trees(state["c_opts"])
+        self.count = state["c_opts"][0]["step"].clone()
+        self.clients = [_clone(state["clients"][0]) for _ in range(S)]
+        self.c_opts = [_clone(state["c_opts"][0]) for _ in range(S)]
         self.server = _clone(state["server"])
         self.s_opt = _clone(state["s_opt"])
 
+    def _begin(self):
+        for j, (cp, co) in enumerate(zip(self.clients, self.c_opts)):
+            g = self.slot_gid[j:j + 1]
+            _copy(cp, tree_take(self.all_clients, g))
+            _copy(co, tree_take(self.all_c_opts, g))
+            co["step"].copy_(self.count)
+
     def _step(self):
         row = self.row()
-        batches = [self.batch(row[c:c + 1])[0] for c in range(self.n_clients)]
+        batches = [self.batch(row[c:c + 1])[0] for c in range(self.n_slots)]
         clients, server, c_opts, s_opt, losses = self.step_fn(
             self.clients, self.server, self.c_opts, self.s_opt, batches,
             self.draws)
@@ -570,42 +805,43 @@ class SyncProgram(_PackedProgram):
         self.t.add_(1)
 
     def _round(self):
-        avg = tree_mean(self.clients)
-        for cp in self.clients:
-            _copy(cp, avg)
+        for j, (cp, co) in enumerate(zip(self.clients, self.c_opts)):
+            g = self.slot_gid[j:j + 1]
+            tree_put(self.all_clients, g, cp)
+            tree_put(self.all_c_opts, g, co)
+        self.count.copy_(self.c_opts[0]["step"])
+        if self.sync:
+            tree_map(lambda x, a: x.copy_(a.expand_as(x)), self.all_clients,
+                     tree_mean(self.clients))
 
     def carry(self):
         return [self.t, self.losses, *tree_leaves(
-            [self.clients, self.c_opts, self.server, self.s_opt])]
+            [self.clients, self.c_opts, self.server, self.s_opt,
+             self.all_clients, self.all_c_opts, self.count])]
 
     def load(self, state):
-        _copy(self.clients, state["clients"])
-        _copy(self.c_opts, state["c_opts"])
+        _copy(self.all_clients, stack_trees(state["clients"]))
+        _copy(self.all_c_opts, stack_trees(state["c_opts"]))
+        self.count.copy_(state["c_opts"][0]["step"])
         _copy(self.server, state["server"])
         _copy(self.s_opt, state["s_opt"])
 
     def store(self, state):
-        state["clients"] = [_clone(cp) for cp in self.clients]
-        state["c_opts"] = [_clone(co) for co in self.c_opts]
+        n = len(state["clients"])
+        state["clients"] = [tree_map(lambda x, c=c: x[c].clone(),
+                                     self.all_clients) for c in range(n)]
+        state["c_opts"] = [
+            {**tree_map(lambda x, c=c: x[c].clone(), self.all_c_opts),
+             "step": self.count.clone()} for c in range(n)]
         state["server"], state["s_opt"] = (_clone(self.server),
                                            _clone(self.s_opt))
 
 
-def key_index_grid(strategy, packed: PackedEpoch) -> np.ndarray:
-    """``[C, NB]`` step indices of FL's grid in client-major stepwise
-    order, reserved from the strategy's running counter for the real cells
-    only; a masked cell keeps 0 and draws nothing."""
-    grid = np.zeros((len(packed.n_batches), packed.nb_max), np.int64)
-    if strategy._keyed:
-        for c, nb in enumerate(packed.n_batches):
-            grid[c, :nb] = strategy._take_key_indices(nb)
-    return grid
-
-
-def program_for(strategy, kind, packed: PackedEpoch, build):
-    """The strategy's program of this packed layout, built by ``build()``
-    the first time (one capture per program, none per epoch or run)."""
-    keys = strategy.adapter.batch_keys or tuple(packed.batches)
+def program_for(strategy, kind, packed, build):
+    """The strategy's program of this packed layout (a ``PackedEpoch``, or
+    a ``ParticipationPack``), built by ``build()`` the first time (one
+    capture per program body, none per round, epoch or run)."""
+    keys = strategy.adapter.batch_keys or tuple(s[0] for s in packed.shapes)
     key = (kind, layout_key(packed, keys))
     prog = strategy._programs.get(key)
     if prog is None:
@@ -614,6 +850,8 @@ def program_for(strategy, kind, packed: PackedEpoch, build):
 
 
 __all__ = ["PackedEpoch", "pack_epoch", "pack_run", "empty_run",
-           "client_major_log", "scheduled_log", "key_index_grid",
-           "Program", "SeqProgram",
-           "FLProgram", "InterleavedProgram", "SyncProgram", "program_for"]
+           "ParticipationPack", "pack_participation_run",
+           "client_major_log", "scheduled_log",
+           "Program", "SeqProgram", "FLProgram", "InterleavedProgram",
+           "SyncProgram", "fl_rows", "interleaved_rows", "sync_rows",
+           "program_for"]

@@ -3,8 +3,15 @@
 
 One federated round == one epoch (as in the paper): the global model is
 pushed to every client, each client runs one local epoch with a fresh Adam
-of its own, and the server aggregates the resulting parameters with a
-data-size-weighted average (``core.aggregate.WeightedMean``).
+of its own, and the server aggregates the resulting parameters with the
+strategy's ``core.aggregate.Aggregator``: the data-size-weighted average
+(``WeightedMean``) unless ``aggregator=`` names another rule.  On the
+compiled engine the rule runs inside the captured round body.
+
+Under ``participation`` (``core.participation``) each round trains only
+its sampled hospitals, packed into a fixed slot axis (without it, all N
+hospitals fill the slots every round); the rule reduces the slots, empty
+ones at zero weight.
 
 Under DP-SGD every local step is the DP estimator, its noise drawn from
 the hospital's own streams, and each hospital's accountant composes its
@@ -19,7 +26,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.aggregate import SecAggregator, WeightedMean
+import numpy as np
+
+from repro_torch.core.aggregate import SecAggregator, make_aggregator
 from repro_torch.core.strategies import engine as ENG
 from repro_torch.core.strategies.base import (EpochLog, Strategy,
                                               full_step_fn, np_batches)
@@ -28,17 +37,26 @@ from repro_torch.core.strategies.base import (EpochLog, Strategy,
 class FedAvg(Strategy):
     name = "fl"
 
-    def __init__(self, *args, **kw):
+    def __init__(self, *args, aggregator=None, **kw):
+        """``aggregator``: the rule's spec (``core.aggregate.
+        make_aggregator``), the data-size-weighted mean when None."""
         super().__init__(*args, **kw)
         self._opt = self.opt_factory()
         self._step = full_step_fn(self.adapter, self._opt, self.privacy)
-        self._secagg = self.privacy is not None and self.privacy.secagg
-        if self._secagg:
+        if self.privacy is not None and self.privacy.secagg:
+            if aggregator is not None:
+                raise ValueError("aggregator= cannot be combined with "
+                                 "privacy.secagg (secure aggregation IS "
+                                 "the aggregation rule)")
+            if self.participation is not None:
+                raise ValueError("participation= with privacy.secagg is "
+                                 "not supported (the pairwise-mask "
+                                 "protocol assumes a fixed cohort)")
             from repro_torch.privacy.secagg import SecAgg
             self.secagg = SecAgg(self.n_clients, seed=self.privacy.seed)
             self._agg = SecAggregator(self.secagg)
         else:
-            self._agg = WeightedMean()
+            self._agg = make_aggregator(aggregator)
 
     def setup(self, seed=0):
         """One global model from ``torch.Generator(seed)`` on the CPU."""
@@ -73,30 +91,78 @@ class FedAvg(Strategy):
         return state, EpochLog(losses, len(losses), weights=loss_w,
                                client_steps=client_steps)
 
-    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs):
+    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs,
+                      participation=None):
+        """The run on one program over the slot axis (``engine.FLProgram``
+        with per-round buffers).  The step indices of the noise streams
+        are laid out over the VIRTUAL full-N run: round r, hospital g,
+        local step t gets the index the run without participation gives
+        it, so a hospital's draws depend only on (round, hospital) and
+        ``Participation(k=N)`` trains exactly as ``participation=None``."""
         if ENG.empty_run(client_data, batch_size, self.drop_remainder):
             return None
-        batches, packed = ENG.pack_run(client_data, batch_size, rng,
-                                       n_epochs, self.drop_remainder)
-        key_idx = [ENG.key_index_grid(self, packed).reshape(-1)
-                   for _ in range(n_epochs)]
-        prog = ENG.program_for(self, "fl", packed, lambda: ENG.FLProgram(
-            self, packed, state, in_graph_round=not self._secagg))
+        part = self._cohort(participation)
+        batches, pack = ENG.pack_participation_run(
+            client_data, batch_size, rng, n_epochs, part,
+            self.drop_remainder)
+        nbs, S, NB = pack.n_batches, pack.n_slots, pack.nb_max
+        T_N = int(sum(nbs))
+        prefix = np.concatenate([[0], np.cumsum(nbs)[:-1]]).astype(np.int64)
+        key_idx = np.zeros((n_epochs, S, NB), np.int64)
+        if self._keyed:
+            base0 = self._key_step
+            for e in range(n_epochs):
+                for s, g in enumerate(pack.slot_gid[e]):
+                    if g >= 0 and nbs[g]:
+                        key_idx[e, s, :nbs[g]] = (
+                            base0 + 1 + e * T_N + prefix[g]
+                            + np.arange(nbs[g], dtype=np.int64))
+            self._key_step += n_epochs * T_N
+        first = pack.epoch(0, batches)
+        prog = ENG.program_for(self, "fl", pack, lambda: ENG.FLProgram(
+            self, first, state, self._agg.scan_compatible))
         prog.load(state)
-        end_round = ((lambda: prog.host_round(self._agg.aggregate_trees))
-                     if self._secagg else None)
-        losses = prog.run(batches, self._program_draw(packed, prog.glob),
-                          key_idx, end_round).cpu().numpy()
+
+        def begin_round(e):
+            prog.load_round(ENG.fl_rows(pack.mask[e], pack.slot_gid[e]),
+                            None if pack.ex_weights is None
+                            else pack.ex_weights[e], agg_w=pack.agg_w[e],
+                            staleness=pack.staleness[e],
+                            slot_gid=pack.slot_gid[e])
+        losses = prog.run(batches, self._program_draw(first, prog.glob),
+                          key_idx.reshape(n_epochs, -1),
+                          self._end_round(prog), begin_round).cpu().numpy()
         prog.store(state)
         logs = []
         for e in range(n_epochs):
-            flat, loss_w = ENG.client_major_log(losses[e], packed)
+            flat, loss_w = ENG.client_major_log(losses[e],
+                                                pack.epoch(e, batches))
+            csteps = [0] * pack.n_global
+            for g in pack.slot_gid[e]:
+                if g >= 0:
+                    csteps[g] = nbs[g]
             logs.append(EpochLog(flat, len(flat), weights=loss_w,
-                                 client_steps=list(packed.n_batches)))
-        for c, nb in enumerate(packed.n_batches):
-            self._dp_account(c, packed.n_samples[c], batch_size,
-                             count=nb * n_epochs)
+                                 client_steps=csteps))
+        # RDP: with sampling randomness EVERY hospital composes EVERY round
+        # at the amplified rate (q_round * q_batch) over its would-be step
+        # count; a deterministic schedule composes the realized rounds only,
+        # at the plain batch rate
+        for g in range(pack.n_global):
+            if part.kind == "schedule":
+                cnt, q_scale = int(pack.part_mask[:, g].sum()) * nbs[g], 1.0
+            else:
+                cnt, q_scale = nbs[g] * n_epochs, part.rate
+            if cnt:
+                self._dp_account(g, pack.n_samples[g], batch_size,
+                                 count=cnt, q_scale=q_scale)
         return state, logs
+
+    def _end_round(self, prog):
+        """The host round a rule that cannot run in a graph (secure
+        aggregation) takes after each round's replays; None otherwise."""
+        if self._agg.scan_compatible:
+            return None
+        return lambda: prog.host_round(self._agg.aggregate_trees)
 
     def params_for_eval(self, state, client_idx):
         return state["params"]

@@ -15,6 +15,9 @@ With privacy each step draws its hospital's noise from that hospital's
 streams (``Strategy._draws``): cut-layer noise at every crossing and/or
 DP-SGD on the joint client + server gradient, and the hospital's
 accountant composes its own steps.
+
+Under fixed-size ``participation`` each round runs the full-N schedule
+filtered to its K sampled hospitals (``_run_compiled``).
 """
 
 from __future__ import annotations
@@ -41,6 +44,12 @@ class SplitLearning(Strategy):
         self.schedule = schedule
         self.transport = transport
         self.name = f"sl_{schedule}"
+        if self.participation is not None and (
+                self.participation.kind != "fixed"):
+            raise ValueError(
+                "the split family supports fixed-size participation only "
+                "(Participation(k=...)): the shared-server schedule needs "
+                "every slot filled")
         self._opt_c, self._opt_s = opt_factory(), opt_factory()
         self._step = self._make_step()
 
@@ -99,57 +108,111 @@ class SplitLearning(Strategy):
         return state, EpochLog(losses, len(losses), weights=loss_w,
                                client_steps=client_steps)
 
-    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs):
+    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs,
+                      participation=None):
+        """The run on one program (``engine.InterleavedProgram``): each
+        round runs the full-N schedule filtered to its sampled hospitals
+        (every hospital without ``participation``), their relative order
+        kept, and only the round's own steps.  A step's noise index is its
+        position in the VIRTUAL full-N schedule, so a hospital's draws
+        depend only on (round, hospital) and ``Participation(k=N)`` trains
+        exactly as ``participation=None``."""
         if ENG.empty_run(client_data, batch_size, self.drop_remainder):
             return None
-        batches, packed = ENG.pack_run(client_data, batch_size, rng,
-                                       n_epochs, self.drop_remainder)
-        sched = schedule_array(self.schedule, packed.n_batches)
-        key_idx = [self._take_key_indices(len(sched)) if self._keyed
-                   else None for _ in range(n_epochs)]
+        part = self._cohort(participation)
+        batches, pack = ENG.pack_participation_run(
+            client_data, batch_size, rng, n_epochs, part,
+            self.drop_remainder)
+        nbs = pack.n_batches
+        full = schedule_array(self.schedule, nbs)
+        S_N = len(full)
+        rounds = []                     # per round: (slot, batch, position)
+        for e in range(n_epochs):
+            slot_of = {int(g): s for s, g in enumerate(pack.slot_gid[e])
+                       if g >= 0}
+            rounds.append([(slot_of[int(c)], int(b), p)
+                           for p, (c, b) in enumerate(full)
+                           if int(c) in slot_of])
+        if not any(rounds):
+            return None
+        key_idx = np.zeros((n_epochs, S_N), np.int64)
+        if self._keyed:
+            for e, rows in enumerate(rounds):
+                key_idx[e, :len(rows)] = [self._key_step + 1 + e * S_N + p
+                                          for _s, _b, p in rows]
+            self._key_step += n_epochs * S_N
+        first = pack.epoch(0, batches)
         prog = ENG.program_for(
-            self, "interleaved", packed, lambda: ENG.InterleavedProgram(
-                self, packed, state, sched, self._syncs_clients))
+            self, "interleaved", pack, lambda: ENG.InterleavedProgram(
+                self, first, state, S_N, self._syncs_clients))
         prog.load(state)
-        draw = self._program_draw(packed, {"c": state["clients"][0],
-                                           "s": state["server"]})
-        losses = prog.run(batches, draw, key_idx).cpu().numpy()
+
+        def begin_round(e):
+            prog.load_round(
+                ENG.interleaved_rows([(s, b) for s, b, _p in rounds[e]],
+                                     pack.nb_max, pack.slot_gid[e]),
+                None if pack.ex_weights is None else pack.ex_weights[e],
+                slot_gid=pack.slot_gid[e])
+        draw = self._program_draw(first, {"c": state["clients"][0],
+                                          "s": state["server"]})
+        losses = prog.run(batches, draw, key_idx, None,
+                          begin_round).cpu().numpy()
         prog.store(state)
         logs = []
-        for e in range(n_epochs):
-            flat, loss_w = ENG.scheduled_log(losses[e], sched, packed)
-            logs.append(EpochLog(flat, len(flat), weights=loss_w,
-                                 client_steps=list(packed.n_batches)))
-        self._account_compiled(packed, batch_size, n_epochs)
+        for e, rows in enumerate(rounds):
+            gid = pack.slot_gid[e]
+            flat, loss_w = ENG.scheduled_log(
+                losses[e, :len(rows)], [(s, b) for s, b, _p in rows],
+                pack.epoch(e, batches))
+            csteps = [0] * pack.n_global
+            for s, _b, _p in rows:
+                csteps[gid[s]] += 1
+            logs.append(EpochLog(flat, len(rows), weights=loss_w,
+                                 client_steps=csteps))
+        # amplified RDP: every hospital composes every round at rate K/N
+        # over the steps it runs when sampled
+        for g in range(pack.n_global):
+            if nbs[g]:
+                self._dp_account(g, pack.n_samples[g], batch_size,
+                                 count=nbs[g] * n_epochs,
+                                 q_scale=part.rate)
+        # wire: only the sampled clients' transfers exist, per round
+        if self.transport is not None:
+            example = {k: v[0, 0] for k, v in first.batches.items()}
+            for g in range(pack.n_global):
+                sampled = int(pack.part_mask[:, g].sum())
+                if nbs[g] and sampled:
+                    self._account_steps(example, pack.batch_size,
+                                        pack.step_examples[g], sampled)
+            for e in range(n_epochs):
+                ids = np.flatnonzero(pack.part_mask[e])
+                counts = [nbs[g] if pack.part_mask[e, g] else 0
+                          for g in range(pack.n_global)]
+                self._record_wire_epoch(
+                    example, counts,
+                    client_set=None if participation is None else ids)
         return state, logs
 
-    def _account_compiled(self, packed, batch_size, n_epochs):
-        """The run's epsilon and wire bytes from shapes and counts: each
-        hospital's steps composed in one accountant call, and metered at
-        their true batch shape (a kept remainder batch at its short one),
-        as the stepwise loop meters them one by one."""
-        example = {k: v[0, 0] for k, v in packed.batches.items()}
-        for c, nb in enumerate(packed.n_batches):
-            self._dp_account(c, packed.n_samples[c], batch_size,
-                             count=nb * n_epochs)
-            if not nb or self.transport is None:
-                continue
-            for m, n_steps in zip(*np.unique(packed.step_examples[c],
-                                             return_counts=True)):
-                b = (example if m == packed.batch_size
-                     else {k: v[:m] for k, v in example.items()})
-                self.transport.account(self.adapter, b,
-                                       count=int(n_steps) * n_epochs)
-        for _ in range(n_epochs):
-            self._record_wire_epoch(example, packed.n_batches)
+    def _account_steps(self, example, batch_size, step_examples, n_epochs):
+        """Meter one hospital's steps at their true batch shape (a kept
+        remainder batch at its short one), ``n_epochs`` times (the rounds
+        it was sampled in)."""
+        for m, n_steps in zip(*np.unique(step_examples, return_counts=True)):
+            b = (example if m == batch_size
+                 else {k: v[:m] for k, v in example.items()})
+            self.transport.account(self.adapter, b,
+                                   count=int(n_steps) * n_epochs)
 
-    def _record_wire_epoch(self, example_batch, n_batches):
-        """Hand the transport this epoch's schedule signature."""
+    def _record_wire_epoch(self, example_batch, n_batches,
+                           client_set=None):
+        """Hand the transport this epoch's schedule signature
+        (``client_set``: a participating round's sampled clients)."""
         if self.transport is None or not sum(n_batches):
             return
         self.transport.record_epoch(self.adapter, example_batch,
                                     self.name.rsplit("_", 1)[0],
-                                    self.schedule, n_batches)
+                                    self.schedule, n_batches,
+                                    client_set=client_set)
 
     def _end_of_epoch(self, state):
         pass

@@ -15,11 +15,20 @@
 Under NLS the client segments are the front and the tail, and the means
 cover both.  With privacy, SFLv2 steps as SL does; SFLv3/v1 draw every
 hospital's noise for the synchronous step, cut noise at every crossing.
+
+Under fixed-size ``participation`` SFLv2 runs as SL does and its sync puts
+the sampled hospitals' mean into every hospital's client tree; SFLv3/v1
+step the round's K sampled hospitals batch-synchronously, their client
+trees and Adam rows gathered out of (and scattered back into) the N
+hospitals' (``_run_compiled``; without participation every hospital
+fills the slots every round).
 """
 
 from __future__ import annotations
 
 import torch
+
+import numpy as np
 
 from repro_torch.core.aggregate import tree_mean
 from repro_torch.core.strategies import engine as ENG
@@ -62,19 +71,28 @@ class SplitFedV3(SplitLearning):
                 "same-shaped batch each step, so drop_remainder=False is "
                 "not representable; use drop_remainder=True")
         self.name = f"sflv3_{schedule}"
+        if (self.participation is not None
+                and self.participation.n_slots != n_clients):
+            # the K-wide step of a participating run
+            self._slot_step = sflv3_step_fn(
+                self.adapter, self._opt_c, self._opt_s,
+                self.participation.n_slots, self.transport, self.privacy)
 
     def _make_step(self):
         return sflv3_step_fn(self.adapter, self._opt_c, self._opt_s,
                              self.n_clients, self.transport, self.privacy)
 
-    def _step_draws(self, step: int, clients, server, batch) -> list:
-        """One step's per-hospital noise (``privacy.dpsgd.step_draws``):
-        cut noise of every crossing's shapes on ``batch`` (one hospital's;
-        batches are never short here), DP noise of ``{"c": client tree,
-        "s": server}``'s."""
+    def _step_draws(self, step: int, clients, server, batch,
+                    hospitals=None) -> list:
+        """One step's per-hospital noise (``privacy.dpsgd.step_draws``) for
+        ``hospitals`` (global ids; default every hospital), one per client
+        tree of ``clients``: cut noise of every crossing's shapes on
+        ``batch`` (one hospital's; batches are never short here), DP noise
+        of ``{"c": client tree, "s": server}``'s."""
         rows = len(next(iter(batch.values())))
-        return step_draws(self.privacy, step, self.n_clients,
-                          self._cut_specs(batch, rows),
+        return step_draws(self.privacy, step,
+                          range(self.n_clients) if hospitals is None
+                          else hospitals, self._cut_specs(batch, rows),
                           [{"c": cp, "s": server} for cp in clients],
                           self.device)
 
@@ -117,37 +135,83 @@ class SplitFedV3(SplitLearning):
         return state, EpochLog(losses, steps,
                                client_steps=[steps] * self.n_clients)
 
-    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs):
-        batches, packed = ENG.pack_run(client_data, batch_size, rng,
-                                       n_epochs)
-        self._check_batches(packed.n_batches, batch_size)
-        steps = packed.nb_max
-        key_idx = [self._take_key_indices(steps) if self._keyed else None
-                   for _ in range(n_epochs)]
-        prog = ENG.program_for(self, "sync", packed, lambda: ENG.SyncProgram(
-            self, packed, state, self._syncs_clients))
+    def _run_compiled(self, state, client_data, rng, batch_size, n_epochs,
+                      participation=None):
+        """The run on one program (``engine.SyncProgram``): each round's
+        sampled hospitals (every hospital without ``participation``) step
+        batch-synchronously as many steps as the most batches among them,
+        their client trees and Adam rows gathered out of the N hospitals'
+        and scattered back.  Step indices are round-major over the full-N
+        grid (``NB_N`` steps a round) and each slot draws for its global
+        id, so ``Participation(k=N)`` trains exactly as
+        ``participation=None``.  Every hospital composes every round at
+        the amplified rate over ``NB_N`` steps (the reference's bound,
+        conservative when a cohort runs fewer)."""
+        part = self._cohort(participation)
+        batches, pack = ENG.pack_participation_run(
+            client_data, batch_size, rng, n_epochs, part, True)
+        nbs = pack.n_batches
+        self._check_batches(nbs, batch_size)
+        NB_N = pack.nb_max
+        real = [max(nbs[g] for g in pack.slot_gid[e])
+                for e in range(n_epochs)]
+        key_idx = np.zeros((n_epochs, NB_N), np.int64)
+        if self._keyed:
+            for e in range(n_epochs):
+                key_idx[e, :real[e]] = (self._key_step + 1 + e * NB_N
+                                        + np.arange(real[e]))
+            self._key_step += n_epochs * NB_N
+        first = pack.epoch(0, batches)
+        prog = ENG.program_for(self, "sync", pack, lambda: ENG.SyncProgram(
+            self, first, state, self._syncs_clients, NB_N))
         prog.load(state)
-        example = {k: v[0, 0] for k, v in packed.batches.items()}
+        gids = []
+
+        def begin_round(e):
+            gids[:] = pack.slot_gid[e]
+            prog.load_round(ENG.sync_rows([nbs[g] for g in gids], NB_N,
+                                          real[e]), slot_gid=gids)
         draw = None
         if self._keyed:
+            example = {k: v[0, 0] for k, v in first.batches.items()}
+
             def draw(i, row):
                 return self._step_draws(i, prog.clients, prog.server,
-                                        example)
-        losses = prog.run(batches, draw, key_idx).cpu().numpy()
+                                        example, gids)
+        losses = prog.run(batches, draw, key_idx, None,
+                          begin_round).cpu().numpy()
         prog.store(state)
-        # every hospital takes part in every synchronous step (wrap-around
-        # included), so the counts are ``steps`` an epoch for DP and wire
-        for c in range(self.n_clients):
-            self._dp_account(c, packed.n_samples[c], batch_size,
-                             count=steps * n_epochs)
-            if self.transport is not None:
-                self.transport.account(self.adapter, example,
-                                       count=steps * n_epochs)
-        for _ in range(n_epochs):
-            self._record_wire_epoch(example, packed.n_batches)
-        return state, [EpochLog(losses[e].reshape(-1).tolist(), steps,
-                                client_steps=[steps] * self.n_clients)
-                       for e in range(n_epochs)]
+        logs = []
+        for e in range(n_epochs):
+            sampled = set(int(g) for g in pack.slot_gid[e])
+            logs.append(EpochLog(
+                losses[e, :real[e]].reshape(-1).tolist(), real[e],
+                client_steps=[real[e] if g in sampled else 0
+                              for g in range(pack.n_global)]))
+        for g in range(pack.n_global):
+            self._dp_account(g, pack.n_samples[g], batch_size,
+                             count=NB_N * n_epochs, q_scale=part.rate)
+        if self.transport is not None:
+            example = {k: v[0, 0] for k, v in first.batches.items()}
+            for g in range(pack.n_global):
+                steps = sum(r for r, m in zip(real, pack.part_mask[:, g])
+                            if m)
+                if steps:
+                    self.transport.account(self.adapter, example,
+                                           count=steps)
+            # the schedule signature: each hospital's batch count, or a
+            # participating round's steps for each sampled hospital (the
+            # reference's)
+            for e in range(n_epochs):
+                if participation is None:
+                    self._record_wire_epoch(example, nbs)
+                    continue
+                ids = np.flatnonzero(pack.part_mask[e])
+                self._record_wire_epoch(
+                    example, [real[e] if pack.part_mask[e, g] else 0
+                              for g in range(pack.n_global)],
+                    client_set=ids)
+        return state, logs
 
 
 class SplitFedV1(SplitFedV3):

@@ -243,12 +243,15 @@ def hospital_draws(cfg: PrivacyConfig, step: int, hospital: int,
     return d
 
 
-def step_draws(cfg: PrivacyConfig, step: int, n_clients: int, cut_specs,
+def step_draws(cfg: PrivacyConfig, step: int, hospitals, cut_specs,
                dp_specs, device) -> list:
-    """Every hospital's noise for one SFLv3 step (``hospital_draws`` for
-    each; ``dp_specs[c]`` is hospital ``c``'s ``{"c", "s"}`` tree)."""
-    return [hospital_draws(cfg, step, c, cut_specs, dp_specs[c], device)
-            for c in range(n_clients)]
+    """The noise of one SFLv3 step for each hospital id of ``hospitals``
+    (``hospital_draws`` for each, in order; ``dp_specs[j]`` is the j-th's
+    ``{"c", "s"}`` tree).  Under participation the ids are the round's
+    sampled GLOBAL hospitals, so a hospital draws the same noise whoever
+    else was sampled."""
+    return [hospital_draws(cfg, step, int(c), cut_specs, dp_specs[j], device)
+            for j, c in enumerate(hospitals)]
 
 
 def first_rows(draws: dict, rows: int) -> dict:

@@ -31,12 +31,15 @@ class EpochSchedule:
     """One trained epoch's schedule signature (``Transport.record_epoch``):
     method kind, client interleaving, per-client train batch counts, the
     per-leg on-wire/raw byte sizes (``core.comm.leg_sizes``) and whether
-    the split is U-shaped."""
+    the split is U-shaped.  Under per-round participation ``client_set``
+    holds the round's sampled global client ids (the others carry a zero
+    ``tr_counts`` entry); None otherwise."""
     kind: str                   # "sl" | "sflv2" | "sflv3" | "sflv1"
     schedule: str               # "ac" | "am"
     tr_counts: tuple            # per-client train batch counts
     legs: dict                  # leg name -> bytes (act_fm, act_mt, ...)
     nls: bool
+    client_set: tuple | None = None   # sampled global client ids
 
 
 @dataclasses.dataclass
@@ -101,8 +104,9 @@ class Transport:
         self.steps += count
 
     def record_epoch(self, adapter, example_batch: dict, kind: str,
-                     schedule: str, n_batches) -> None:
-        """Append one trained epoch's schedule signature to ``epoch_log``."""
+                     schedule: str, n_batches, client_set=None) -> None:
+        """Append one trained epoch's schedule signature to ``epoch_log``;
+        ``client_set`` marks a participating round's sampled clients."""
         key = ("legs", *self._shape_key(adapter, example_batch))
         if key not in self._cache:
             from repro_torch.core.comm import leg_sizes
@@ -110,7 +114,9 @@ class Transport:
                                          codec=self.codec)
         self.epoch_log.append(EpochSchedule(
             kind, schedule, tuple(int(n) for n in n_batches),
-            self._cache[key], adapter.nls))
+            self._cache[key], adapter.nls,
+            None if client_set is None
+            else tuple(int(c) for c in client_set)))
 
     @property
     def compression_ratio(self) -> float:

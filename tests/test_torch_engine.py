@@ -238,8 +238,10 @@ def test_three_epoch_run_builds_one_program(uneven, method):
     st = b["st"]
     assert len(st._programs) == 1
     prog = next(iter(st._programs.values()))
-    assert set(prog.bodies) == ({"step", "round"} if method in (
-        "fl", "sflv2_ac", "sflv1_ac") else {"step"})
+    assert set(prog.bodies) == {
+        "fl": {"step", "round"}, "sflv2_ac": {"step", "round"},
+        "sflv3_ac": {"begin", "step", "round"},
+        "sflv1_ac": {"begin", "step", "round"}}.get(method, {"step"})
     state, logs = st.run(st.setup(1), [c.train for c in clients],
                          np.random.default_rng(1), 4, 2)
     st.run_epoch(state, [c.train for c in clients],
@@ -250,12 +252,16 @@ def test_three_epoch_run_builds_one_program(uneven, method):
 def test_fl_steps_over_masked_cells(uneven):
     """FL's grid holds a padding cell for every batch a hospital lacks
     (17/12/9 images at batch 4: 4, 3 and 2 batches, 12 cells); the masked
-    cells change nothing, so the epoch equals the stepwise one."""
+    cells change nothing, so the epoch equals the stepwise one.  The
+    table's last column is the slot of the stacked locals, the hospital
+    itself without participation."""
     clients = uneven[16]
     b = train("fl", "compiled", clients)
     prog = next(iter(b["st"]._programs.values()))
     rows = prog.table.numpy()
-    assert rows.shape == (12, 4)
+    assert rows.shape == (12, 5)
+    assert rows[:, 4].tolist() == rows[:, 1].tolist() == [0] * 4 + [1] * 4 \
+        + [2] * 4
     assert rows[:, 2].tolist() == [1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 0, 0]
     assert rows[:, 3].tolist() == [1, 0, 0, 0] * 3
     assert b["logs"][0].client_steps == [4, 3, 2]

@@ -132,12 +132,13 @@ def test_batch_synchronous_methods_refuse_short_batches(method):
     ("centralized", False, dict(transport=True), ValueError),
     ("fl", False, dict(privacy=dict(cut_noise_std=0.5)), ValueError),
     ("sl_am", False, dict(privacy=dict(secagg=True)), ValueError),
-    # privacy on SFLv2 and under NLS is ported now (M8): these three
-    # cases keep their ids and check the options that still raise on
-    # those private paths
+    # privacy on SFLv2 and under NLS is ported now (M8), and participation
+    # (M9): these three cases keep their ids and check the options that
+    # still raise on those private paths (the split family takes
+    # fixed-size participation only: the reference's ValueError)
     pytest.param("sflv2_ac", False, dict(
         privacy=dict(noise_multiplier=1.0, clip_norm=1.0),
-        participation=object()), "M9", id="sflv2_ac-False-kw3-M8"),
+        participation=dict(q=0.5)), ValueError, id="sflv2_ac-False-kw3-M8"),
     pytest.param("sflv3_ac", True, dict(privacy=dict(cut_noise_std=0.5),
                                         observe=True), "M10",
                  id="sflv3_ac-True-kw4-M8"),
@@ -154,6 +155,10 @@ def test_make_strategy_refuses_what_the_grid_does_not_run(method, nls, kw,
         kw["transport"] = Transport("int8", device="cpu")
     if "privacy" in kw:
         kw["privacy"] = PrivacyConfig(**kw["privacy"])
+    if "participation" in kw:
+        from repro_torch.core.participation import Participation
+        kw["participation"] = Participation(n_global=5,
+                                            **kw["participation"])
     exc, match = (NotImplementedError, err) if isinstance(err, str) \
         else (err, None)
     with pytest.raises(exc, match=match):

@@ -250,36 +250,54 @@ def test_port_setup_has_the_reference_layout(runs):
     assert mine["s_opt"]["step"] == 0 and len(mine["c_opts"]) == N_CLIENTS
 
 
-# precision="bf16" (M4), engine="compiled" (M6) and privacy on the whole
-# grid (M8) are ported now: their cases keep their ids and check the
-# options that still raise on those paths (a custom aggregator under bf16
-# or DP, participation under cut noise on SFLv2's compiled engine,
-# observe= under DP with the NLS cut)
-@pytest.mark.parametrize("kw, item", [
-    pytest.param(dict(precision="bf16", method="fl", aggregator=object()),
-                 "M9", id="kw0-M4"),
-    (dict(observe=True), "M10"),
-    (dict(shard=True), "M11"),
-    (dict(participation=object()), "M9"),
+# precision="bf16" (M4), engine="compiled" (M6), privacy on the whole grid
+# (M8), participation and the aggregation rules (M9) are ported now: their
+# cases keep their ids and check what holds on those paths (an option that
+# builds, expect None; the reference's ValueError, a message; or an option
+# that still raises, the ROADMAP item it names: observe= under DP with the
+# NLS cut)
+@pytest.mark.parametrize("kw, expect", [
+    pytest.param(dict(precision="bf16", method="fl",
+                      aggregator="trimmed_mean"), None, id="kw0-M4"),
+    pytest.param(dict(observe=True), "M10", id="kw1-M10"),
+    pytest.param(dict(shard=True), "M11", id="kw2-M11"),
+    pytest.param(dict(participation=dict(q=0.5)),
+                 "fixed-size participation only", id="kw3-M9"),
     pytest.param(dict(engine="compiled", method="sflv2_ac",
                       privacy=dict(cut_noise_std=0.5),
-                      participation=object()), "M9", id="kw4-M6"),
+                      participation=dict(k=2)), None, id="kw4-M6"),
     pytest.param(dict(method="fl", privacy=dict(noise_multiplier=1.0,
                                                 clip_norm=1.0),
-                      aggregator=object()), "M9", id="kw5-M8"),
+                      aggregator="coordinate_median"), None, id="kw5-M8"),
     pytest.param(dict(method="sl_ac", nls=True,
                       privacy=dict(noise_multiplier=1.0, clip_norm=1.0),
                       observe=True), "M10", id="kw6-M8"),
 ])
-def test_unported_options_raise_naming_their_roadmap_item(kw, item):
+def test_unported_options_raise_naming_their_roadmap_item(kw, expect):
+    from repro_torch.core.participation import Participation
     from repro_torch.privacy import PrivacyConfig
     ta = cnn_adapter(build_densenet(DENSENET_MINI, nls=kw.pop("nls", False)))
     method = kw.pop("method", "sflv3_ac")
     if "privacy" in kw:
         kw["privacy"] = PrivacyConfig(**kw["privacy"])
-    with pytest.raises(NotImplementedError, match=item):
-        make_strategy(method, ta, lambda: TO.adam(LR), N_CLIENTS,
-                      device="cpu", **kw)
+    if "participation" in kw:
+        kw["participation"] = Participation(n_global=N_CLIENTS,
+                                            **kw["participation"])
+
+    def build():
+        return make_strategy(method, ta, lambda: TO.adam(LR), N_CLIENTS,
+                             device="cpu", **kw)
+    if expect is None:
+        st = build()
+        assert st.participation is kw.get("participation")
+        if "aggregator" in kw:
+            assert st._agg.name == kw["aggregator"]
+    elif expect.startswith("M"):
+        with pytest.raises(NotImplementedError, match=expect):
+            build()
+    else:
+        with pytest.raises(ValueError, match=expect):
+            build()
 
 
 def test_make_strategy_defaults_to_cuda(monkeypatch):
