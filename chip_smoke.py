@@ -125,6 +125,33 @@ Phases, in order; any failure exits nonzero before the last line:
      the program's own stacked locals within 1e-6 (of the rows' scale)
      of the rule in float64 on the host, and the round body's time a
      replay;
+ 13. after training, at full width (it also runs before phase 10):
+     DenseNet-121 at 224^2, the main path's 5 hospitals, batch 16, the
+     fused int8 link, cuDNN's deterministic algorithms: (a) SFLv3-AC and
+     SL-AM, 2 epochs of 2 batches a hospital on both engines from the same
+     start under ``adam(cosine_warmup(1e-4, 2, 6), weight_decay=1e-4)``:
+     losses and params equal, the rate each step read (written on the
+     device by the schedule) the schedule's and not all one, replay
+     seconds; (b) ``timeline_from_accounting`` of each trained transport
+     over ``hospital_wan`` equal across the engines, its first epoch equal
+     to ``simulate``, and wire_sweep's two gates at its hospital sizes
+     (identity bytes within 1% of ``comm_per_epoch`` for every method; an
+     accounting-fed timeline equal to ``simulate``), each method's int8
+     epoch seconds over ``lan``, ``hospital_wan`` and ``cellular`` and
+     its straggler sensitivity; (c) ``boundary_error`` of
+     ``Transport("int8")`` on the trained SFLv3 hospital 0 and 16 images:
+     K1 and K2 launch, every value equal to the plain versions'; (d)
+     ``export`` through ``save_servable``/``load_servable`` and the whole
+     state through ``checkpoint``, bit-equal, the export's scores equal to
+     ``Strategy.scores``; (e) ``BucketScorer`` in f32 and bf16: one capture
+     per bucket of (1, 2, 4, ..., 64), none while scoring 1, 3, 16, 17, 64
+     and 100 images, scores within 1e-5 (bf16 0.05) of ``Strategy.scores``'
+     function, each bucket's replay ms (CUDA events) and images per
+     second; (f) ``ScreeningService``: 256 single-image requests from 8
+     threads with one swap in the middle, every score within 1e-5 of
+     exactly one version's and the versions never going back, p50/p99
+     latency, mean batch and requests per second, and ``Backpressure``
+     past ``max_queue``;
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
      bf16 rows, ``unet_leaf`` entries and ``bare_ms``, K4 with
      ``one_hospital``; launches of every phase), then the last line
@@ -1644,9 +1671,10 @@ def captured_leaves(transport):
 
 
 def engine_run(engine, method, nls, adapter, clients, batch, dev, precision,
-               privacy=None, fuse=True, epochs=1):
+               privacy=None, fuse=True, epochs=1, opt_factory=None):
     """``epochs`` epochs of one grid row on ``engine`` from seed 0 (2
-    batches per hospital an epoch), with ``Strategy.run``; returns a dict
+    batches per hospital an epoch), with ``Strategy.run`` (the optimizer
+    ``opt_factory`` makes, ``adam(1e-4)`` by default); returns a dict
     of the strategy, state, logs, transport, step seconds (stepwise: each
     step; compiled: each replay, and the first call of each body apart),
     the run's wall time, peak memory, the K3 pairs captured and the plans
@@ -1663,7 +1691,8 @@ def engine_run(engine, method, nls, adapter, clients, batch, dev, precision,
     tr = Transport("int8", fuse=fuse, device=dev) if split else None
     held = captured_leaves(tr) if split and engine == "compiled" else []
     strat = make_strategy(
-        method, adapter, lambda: O.adam(1e-4), len(clients), transport=tr,
+        method, adapter, opt_factory or (lambda: O.adam(1e-4)), len(clients),
+        transport=tr,
         privacy=None if privacy is None else PrivacyConfig(**privacy),
         engine=engine, precision=precision, device=dev)
     calls, step_s, k2_plans = [], [], []
@@ -2498,6 +2527,400 @@ def participation_path(dev, clients):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: after training — the schedule, the wire simulator, export,
+# checkpoints and the screening service
+# ---------------------------------------------------------------------------
+
+SCHED_METHODS = ("sflv3_ac", "sl_am")
+SCHED_EPOCHS = 2
+# benchmarks/wire_sweep.py's hospitals and batch (the paper's five sites)
+SWEEP_TRAIN = [472, 236, 110, 472, 236]
+SWEEP_VAL = [118, 59, 28, 118, 59]
+SWEEP_BATCH = 32
+SCORE_NS = (1, 3, 16, 17, 64, 100)
+SERVE_BARS = {"fp32": 1e-5, "bf16": 0.05}
+SERVICE_REQUESTS, SERVICE_THREADS = 256, 8
+
+
+def schedule_opt(hist):
+    """``adam(cosine_warmup(1e-4, 2, 6), weight_decay=1e-4)`` whose rate
+    also lands in ``hist[step - 1]`` (a device write, so a captured step
+    records each replay's own rate)."""
+    from repro_torch import optim as O
+
+    sched = O.cosine_warmup(1e-4, 2, 6)
+
+    def lr(step):
+        v = sched(step)
+        hist.index_copy_(0, (step - 1).reshape(1), v.reshape(1))
+        return v
+    return sched, lambda: O.adam(lr, weight_decay=1e-4)
+
+
+def schedule_pair(method, adapter, clients, dev):
+    """Part (a): one method on both engines from the same start, 2 epochs
+    under the schedule; every loss and param equal, the rates the
+    schedule's at each step and not all one.  Returns the two runs, their
+    graphs and held buffers dropped."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    runs, hists = {}, {}
+    for engine in ("stepwise", "compiled"):
+        hists[engine] = torch.full((64,), float("nan"), device=dev)
+        sched, factory = schedule_opt(hists[engine])
+        runs[engine] = engine_run(engine, method, False, adapter, clients,
+                                  BATCH, dev, "fp32", epochs=SCHED_EPOCHS,
+                                  opt_factory=factory)
+    sw, cp = runs["stepwise"], runs["compiled"]
+    steps = sum(l.steps for l in cp["logs"])
+    want = torch.stack([sched(torch.tensor(k, device=dev))
+                        for k in range(1, steps + 1)])
+    rates = hists["compiled"][:steps]
+    same = all(torch.equal(a, b) for c in range(len(clients))
+               for a, b in zip(tree_leaves(sw["strat"].params_for_eval(
+                   sw["state"], c)), tree_leaves(cp["strat"].params_for_eval(
+                       cp["state"], c))))
+    log(f"  {method} under the schedule, {steps} steps: replay seconds "
+        f"{[round(x, 4) for x in cp['step_s']]} (stepwise steps "
+        f"{[round(x, 4) for x in sw['step_s']]}); rates per step "
+        f"{rates.tolist()}")
+    if not (same and [l.losses for l in sw["logs"]]
+            == [l.losses for l in cp["logs"]]):
+        fail(f"{method}: the engines disagree under the schedule")
+    if not (torch.equal(rates, want) and torch.equal(
+            hists["stepwise"][:steps], want)
+            and len(set(rates.tolist())) > 1):
+        fail(f"{method}: the rates read {rates.tolist()}, the schedule's "
+             f"are {want.tolist()}: frozen at capture, or another step's")
+    if not all(np.isfinite(l.losses).all() for l in cp["logs"]):
+        fail(f"{method}: non-finite losses under the schedule")
+    for run in runs.values():
+        run["strat"]._programs.clear()
+        run["held"].clear()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def simulator_checks(runs, adapter, clients):
+    """Part (b): the trained transports through ``timeline_from_
+    accounting``, equal across the engines and, for one epoch, to
+    ``simulate``; wire_sweep's two gates at full width; each method's
+    simulated epoch over the three scenarios and its straggler
+    sensitivity."""
+    from repro_torch.core.comm import client_batch_counts, comm_per_epoch
+    from repro_torch.core.strategies import METHODS
+    from repro_torch.wire import (SCENARIOS, Transport, simulate,
+                                  straggler_sensitivity,
+                                  timeline_from_accounting)
+
+    n_val = [len(c.val["label"]) for c in clients]
+    n_train = [2 * BATCH] * len(clients)
+    example = {k: v[:BATCH] for k, v in clients[0].train.items()}
+    for method, pair in runs.items():
+        tls = {}
+        for engine, run in pair.items():
+            tr = run["tr"]
+            if len(tr.epoch_log) != SCHED_EPOCHS:
+                fail(f"{method} {engine}: {len(tr.epoch_log)} epochs "
+                     "recorded")
+            tls[engine] = timeline_from_accounting(tr, n_val, BATCH,
+                                                   "hospital_wan")
+        one = Transport(pair["compiled"]["tr"].codec, device="cpu")
+        one.epoch_log.append(pair["compiled"]["tr"].epoch_log[0])
+        first = timeline_from_accounting(one, n_val, BATCH, "hospital_wan")
+        sim = simulate(method, adapter, example, n_train, n_val, BATCH,
+                       one.codec, "hospital_wan")
+        sw, cp = tls["stepwise"], tls["compiled"]
+        log(f"  {method} timeline ({SCHED_EPOCHS} epochs, int8, "
+            f"hospital_wan): {cp.wall_clock_s:.6f} s, "
+            f"{cp.bytes_on_wire:.0f} bytes; one epoch {first.wall_clock_s:.6f}"
+            f" s, simulate {sim.wall_clock_s:.6f} s")
+        if not (sw.wall_clock_s == cp.wall_clock_s
+                and sw.breakdown == cp.breakdown):
+            fail(f"{method}: the engines' timelines differ")
+        if not (first.wall_clock_s == sim.wall_clock_s
+                and first.breakdown == sim.breakdown
+                and cp.bytes_on_wire == SCHED_EPOCHS * sim.bytes_on_wire):
+            fail(f"{method}: the trained timeline disagrees with simulate")
+    sweep = {k: v[:SWEEP_BATCH] for k, v in clients[0].train.items()}
+    if len(sweep["label"]) != SWEEP_BATCH:
+        fail(f"the sweep's example needs {SWEEP_BATCH} images a hospital")
+    for method in METHODS:
+        analytic = comm_per_epoch(method, adapter, sweep, SWEEP_TRAIN,
+                                  SWEEP_VAL, SWEEP_BATCH).bytes_per_epoch
+        got = simulate(method, adapter, sweep, SWEEP_TRAIN, SWEEP_VAL,
+                       SWEEP_BATCH, "identity", "lan",
+                       keep_events=False).bytes_on_wire
+        if abs(got - analytic) > 0.01 * max(analytic, 1.0):
+            fail(f"{method}: simulated bytes {got} vs comm_per_epoch "
+                 f"{analytic} differ by more than 1%")
+        secs = {net: simulate(method, adapter, sweep, SWEEP_TRAIN,
+                              SWEEP_VAL, SWEEP_BATCH, "int8", net,
+                              keep_events=False).wall_clock_s
+                for net in SCENARIOS}
+        sens = {net: straggler_sensitivity(method, adapter, sweep,
+                                           SWEEP_TRAIN, SWEEP_VAL,
+                                           SWEEP_BATCH, "int8", net)
+                for net in SCENARIOS}
+        log(f"    {method}: identity bytes {got:.0f} = comm_per_epoch; int8 "
+            f"epoch seconds {json.dumps(secs)}; straggler sensitivity "
+            f"{json.dumps(sens)}")
+    tr_counts, _ = client_batch_counts(SWEEP_TRAIN, SWEEP_VAL, SWEEP_BATCH)
+    for method in ("sl_ac", "sl_am", "sflv2_ac", "sflv3_ac"):
+        kind, _, schedule = method.partition("_")
+        tp = Transport("identity", device="cpu")
+        tp.record_epoch(adapter, sweep, kind, schedule, tr_counts)
+        for nb in tr_counts:
+            tp.account(adapter, sweep, count=nb)
+        acc = timeline_from_accounting(tp, SWEEP_VAL, SWEEP_BATCH, "lan",
+                                       keep_events=False)
+        sim = simulate(method, adapter, sweep, SWEEP_TRAIN, SWEEP_VAL,
+                       SWEEP_BATCH, "identity", "lan", keep_events=False)
+        if (acc.wall_clock_s != sim.wall_clock_s
+                or acc.breakdown != sim.breakdown):
+            fail(f"{method}: the accounting-fed timeline diverges from "
+                 "simulate")
+    log("  wire_sweep's gates hold at full width: identity bytes within 1% "
+        "of comm_per_epoch for every method, accounting-fed timelines equal "
+        "to simulate")
+
+
+def plain_error(x) -> dict:
+    """``Codec.error`` of the int8 link with K2(K1(x)) replaced by the
+    plain versions (``act_compress/ref.py``)."""
+    import torch
+
+    from repro_torch.kernels.act_compress import ref as R
+
+    r = R.roundtrip_ref(x.reshape(-1, x.shape[-1])).reshape(x.shape).float()
+    x = x.float()
+    diff = torch.abs(x - r)
+    denom = torch.clamp_min(torch.linalg.vector_norm(x.reshape(-1)), 1e-12)
+    return {"max_abs": float(diff.max()), "mae": float(diff.mean()),
+            "rel_l2": float(torch.linalg.vector_norm(diff.reshape(-1))
+                            / denom)}
+
+
+def boundary_checks(strat, state, clients, dev):
+    """Part (c): ``boundary_error`` of the int8 link on hospital 0's
+    trained SFLv3 params and one batch of 16: K1 and K2 launch, and every
+    value equals the plain versions' on the same activations."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+    from repro_torch.wire import Transport, boundary_error
+
+    kernels = path_kernels()
+    params = strat.params_for_eval(state, 0)
+    batch = strat.to_device({k: v[:BATCH] for k, v in clients[0].test.items()})
+    before = {n: kernels[n].launches for n in ("K1", "K2")}
+    errs = boundary_error(Transport("int8", device=dev), strat.adapter,
+                          params, batch)
+    counts = {n: kernels[n].launches - before[n] for n in before}
+    with torch.no_grad():
+        h = strat.adapter.apply_seg("front", params["front"],
+                                    strat.adapter.inputs(batch), batch,
+                                    False)
+    want = {"front->": [plain_error(l) for l in tree_leaves(h)]}
+    log(f"  boundary_error (int8, trained SFLv3, hospital 0, {BATCH} "
+        f"images): {json.dumps(errs)}; launches {json.dumps(counts)}")
+    if not all(counts.values()):
+        fail(f"boundary_error launched no K1 or K2: {counts}")
+    if errs != want:
+        fail(f"boundary_error {errs} differs from the plain versions' "
+             f"{want}")
+    return counts
+
+
+def export_checks(strat, state, clients, dev, tmp):
+    """Part (d): export hospital 0 through ``save_servable`` and
+    ``load_servable``, its scores against ``Strategy.scores``, and the
+    whole state through ``checkpoint``; all bit-equal.  Returns the
+    export."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import load_servable, save_servable
+    from repro_torch.train import checkpoint
+
+    def equal(a, b):
+        fa, fb = dict(checkpoint.tree_paths(a)), dict(checkpoint.tree_paths(b))
+        return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k])
+                                              for k in fa)
+
+    sv = strat.export(state, 0, meta={"epochs": SCHED_EPOCHS})
+    path = str(Path(tmp) / "sflv3_h0.msgpack")
+    t0 = time.perf_counter()
+    save_servable(path, sv)
+    back = load_servable(path, strat.adapter, device=dev)
+    t1 = time.perf_counter()
+    checkpoint.save(str(Path(tmp) / "state.ckpt"), state)
+    whole = checkpoint.load(str(Path(tmp) / "state.ckpt"), state)
+    t2 = time.perf_counter()
+    data = clients[0].test
+    same_scores = np.array_equal(sv.scores(data),
+                                 strat.scores(state, 0, data))
+    log(f"  export: {Path(path).stat().st_size} bytes, save + load "
+        f"{t1 - t0:.3f} s; whole-state checkpoint "
+        f"{Path(tmp, 'state.ckpt').stat().st_size} bytes, {t2 - t1:.3f} s; "
+        f"scores == Strategy.scores: {same_scores}")
+    if not (equal(back.params, sv.params) and back.meta == sv.meta):
+        fail("the export does not come back bit-equal from its file")
+    if not same_scores or not np.array_equal(back.scores(data),
+                                             sv.scores(data)):
+        fail("the export's scores differ from Strategy.scores")
+    if not equal(whole, state):
+        fail("the checkpoint does not come back bit-equal")
+    return sv
+
+
+def scorer_checks(sv, images, dev):
+    """Part (e): ``BucketScorer`` in f32 and bf16: one capture per bucket,
+    none while scoring ``SCORE_NS`` images, scores within ``SERVE_BARS``
+    of ``ServableModel.scores`` (``Strategy.scores``' function), and each
+    bucket's replay time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import BucketScorer
+
+    ref = sv.scores({"image": images})
+    for precision, bar in SERVE_BARS.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc = BucketScorer(sv, image_shape=images.shape[1:],
+                          precision=precision)
+        torch.cuda.synchronize()
+        built, t_build = sc.n_compiles, time.perf_counter() - t0
+        worst = 0.0
+        for n in SCORE_NS:
+            got, info = sc.score({"image": images[:n]})
+            if got.shape != (n,) or not np.isfinite(got).all():
+                fail(f"{precision}: {n} images scored as {got.shape}")
+            worst = max(worst, float(np.abs(got - ref[:n]).max()))
+        times = {}
+        for b, prog in sc._progs.items():
+            ms = cuda_ms(lambda prog=prog: prog("score"))
+            times[b] = (round(ms, 4), round(b / ms * 1e3, 1))
+        log(f"  BucketScorer {precision}: {built} captures in "
+            f"{t_build:.2f} s, {sc.n_compiles} after scoring "
+            f"{list(SCORE_NS)}; max |score - eval| {worst:.3g} (bar {bar}); "
+            f"bucket: (replay ms, images/s) {json.dumps(times)}")
+        if built != len(sc.buckets) or sc.n_compiles != built:
+            fail(f"{precision}: {built} captures for {len(sc.buckets)} "
+                 f"buckets, {sc.n_compiles} after scoring")
+        if worst > bar:
+            fail(f"{precision}: scores {worst} from Strategy.scores")
+        del sc
+        torch.cuda.empty_cache()
+    return ref
+
+
+def service_checks(sv, other, images, ref):
+    """Part (f): ``ScreeningService``: 256 single-image requests from 8
+    threads with one swap to ``other`` (the same network from another
+    seed) in the middle; each score within
+    the f32 bar of exactly one version's, the versions served never going
+    back; ``Backpressure`` past ``max_queue``; latency and throughput."""
+    import concurrent.futures as cf
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import Backpressure, ScreeningService
+
+    ref_other = other.scores({"image": images})
+    if not (np.abs(ref - ref_other) > 2 * SERVE_BARS["fp32"]).all():
+        fail("the two versions' scores are too close to tell apart")
+    n = len(images)
+    with ScreeningService(sv, image_shape=images.shape[1:]) as svc:
+        def one(i):
+            if i == SERVICE_REQUESTS // 2:
+                svc.swap(other)
+            return svc.score_one({"image": images[i % n]})
+
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(SERVICE_THREADS) as ex:
+            got = list(ex.map(one, range(SERVICE_REQUESTS)))
+        wall = time.perf_counter() - t0
+        stats = svc.stats()
+        served = [d["version"] for d in svc.batcher._completed]
+    got = np.asarray(got, np.float32)
+    idx = np.arange(SERVICE_REQUESTS) % n
+    near0 = np.abs(got - ref[idx]) <= SERVE_BARS["fp32"]
+    near1 = np.abs(got - ref_other[idx]) <= SERVE_BARS["fp32"]
+    log(f"  ScreeningService: {SERVICE_REQUESTS} requests from "
+        f"{SERVICE_THREADS} threads in {wall:.3f} s "
+        f"({SERVICE_REQUESTS / wall:.1f} requests/s); {json.dumps(stats)}; "
+        f"version 0 served {int(near0.sum())}, version 1 {int(near1.sum())}")
+    if not (near0 ^ near1).all():
+        fail("a served score matches neither version (a torn tree?)")
+    if served != sorted(served) or set(served) != {0, 1}:
+        fail(f"the versions served went back or one is missing: {served}")
+    with ScreeningService(sv, image_shape=images.shape[1:], buckets=(64,),
+                          max_wait_s=0.5, max_queue=8) as svc:
+        reqs = [svc.submit({"image": images[0]}) for _ in range(8)]
+        try:
+            svc.submit({"image": images[0]})
+            fail("no Backpressure past max_queue")
+        except Backpressure:
+            pass
+        if not all(r.done.wait(30) for r in reqs):
+            fail("the queued requests were not served after Backpressure")
+    log("  Backpressure past max_queue=8; the queued 8 served in one batch "
+        f"of {reqs[0].lat['batch_n']}")
+    torch.cuda.empty_cache()
+
+
+def serving_path(dev, clients):
+    """Phase 13 on DenseNet-121 at 224^2, 5 hospitals, batch 16, the fused
+    int8 link: (a) SFLv3 and SL-AM under a cosine schedule with decay on
+    both engines, (b) the wire simulator on the trained transports, (c)
+    ``boundary_error`` through K1 and K2, (d) export and checkpoints, (e)
+    the bucket scorer in f32 and bf16, (f) the screening service.
+    Returns the launches of K1-K3 in the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_models import DENSENET121_PAPER
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.models.cnn import build_densenet
+
+    adapter = cnn_adapter(build_densenet(DENSENET121_PAPER))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches()
+        runs = {m: schedule_pair(m, adapter, clients, dev)
+                for m in SCHED_METHODS}
+        simulator_checks(runs, adapter, clients)
+        cp = runs["sflv3_ac"]["compiled"]
+        strat, state = cp["strat"], cp["state"]
+        del runs
+        boundary_checks(strat, state, clients, dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            sv = export_checks(strat, state, clients, dev, tmp)
+        other = strat.export(strat.setup(1), 0)     # another model
+        images = np.concatenate([c.train["image"] for c in clients])[
+            :max(SCORE_NS)]
+        ref = scorer_checks(sv, images, dev)
+        service_checks(sv, other, images, ref)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = {k: v.launches for k, v in path_kernels().items()
+                if k in ("K1", "K2", "K3")}
+    log(f"  launches in phase 13: {json.dumps(launches)}")
+    if not all(launches.values()):
+        fail(f"a kernel of phase 13 never launched: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 7: the LM serving slice
 # ---------------------------------------------------------------------------
 
@@ -2907,6 +3330,11 @@ def main():
     phase("phase 12: participation and the aggregation rules, "
           "DenseNet-121 at 224^2")
     for key, n in participation_path(dev, clients).items():
+        launches[key] += n
+
+    phase("phase 13: after training — schedule, wire simulator, export, "
+          "checkpoints, screening service, DenseNet-121 at 224^2")
+    for key, n in serving_path(dev, clients).items():
         launches[key] += n
     del clients
 

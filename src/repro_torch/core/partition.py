@@ -157,6 +157,43 @@ def cast_adapter(adapter: SplitAdapter, precision: str) -> SplitAdapter:
     return dataclasses.replace(adapter, apply_seg=apply_seg)
 
 
+@torch.no_grad()
+def grid_scores(adapter: SplitAdapter, params, data: dict, batch_size: int,
+                chunk_batches: int | None = None) -> np.ndarray:
+    """Per-sample scores (``adapter.full_scores``) of every sample of
+    ``data`` (numpy arrays), on the reference's pad-and-slice grid: batches
+    of ``bs = min(batch_size, n)``, the last padded by repeating its final
+    row, the padded rows' scores sliced off.  The grid moves to the params'
+    device ``chunk_batches`` batches at a time (all at once by default);
+    every batch is one forward whatever the chunking, so the scores do not
+    depend on it.  ``Strategy.scores`` and ``ServableModel.scores`` both
+    call this, so an export scores as its strategy does, bit for bit."""
+    n = len(next(iter(data.values())))
+    if n == 0:
+        return np.zeros((0,))
+    bs = min(batch_size, n)
+    nb = -(-n // bs)
+    ch = nb if chunk_batches is None else int(chunk_batches)
+    if ch < 1:
+        raise ValueError("chunk_batches must be >= 1")
+    device = tree_leaves(params)[0].device
+    keys = [k for k in (adapter.batch_keys or data) if k in data]
+    grid = {}
+    for k in keys:
+        v = np.asarray(data[k])
+        if len(v) != nb * bs:
+            v = np.concatenate([v, np.repeat(v[-1:], nb * bs - n, axis=0)])
+        grid[k] = torch.from_numpy(np.ascontiguousarray(v))
+    out = []
+    for c in range(0, nb, ch):
+        rows = slice(c * bs, min(c + ch, nb) * bs)
+        chunk = {k: v[rows].to(device) for k, v in grid.items()}
+        out += [adapter.full_scores(params, {k: v[s:s + bs]
+                                             for k, v in chunk.items()})
+                for s in range(0, len(chunk[keys[0]]), bs)]
+    return torch.cat(out).cpu().numpy()[:n]
+
+
 def leaf_bytes(tree) -> int:
     return int(sum(l.numel() * l.element_size() for l in tree_leaves(tree)))
 

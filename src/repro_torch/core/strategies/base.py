@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.participation import Participation, as_participation
-from repro_torch.core.partition import SplitAdapter, as_meta, detached
+from repro_torch.core.partition import (SplitAdapter, as_meta, detached,
+                                        grid_scores)
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.privacy.dpsgd import (crossings, cut_noise_boundary,
                                        dp_value_and_grad, first_rows,
@@ -79,6 +80,9 @@ def np_batches(data: dict, batch_size: int, rng: np.random.Generator | None,
 
 class Strategy:
     name: str = "base"
+    #: every hospital scores with the same params (centralized, FL); an
+    #: export records it, as the reference's does
+    shared_eval_params: bool = False
 
     def __init__(self, adapter: SplitAdapter, opt_factory: Callable[[], Optimizer],
                  n_clients: int, device: torch.device, privacy=None,
@@ -140,7 +144,19 @@ class Strategy:
         return participation or Participation(n_global=self.n_clients,
                                               k=self.n_clients)
 
+    def _check_capturable(self):
+        """The compiled engine replays captured steps: an optimizer whose
+        state a graph cannot replay (``optim.add_noise``'s generator would
+        add the same noise every replay) is refused, never run frozen."""
+        if not self.opt_factory().capturable:
+            raise NotImplementedError(
+                "this optimizer keeps a torch.Generator in its state "
+                "(optim.add_noise), which a captured CUDA graph would replay "
+                "with the same draws every step; the compiled engine does "
+                "not register generator states yet: use engine='stepwise'")
+
     def _run_epoch_compiled(self, state, client_data, rng, batch_size):
+        self._check_capturable()
         out = self._run_compiled(state, client_data, rng, batch_size, 1)
         if out is None:
             # no hospital has a batch: the loop trains nothing, and draws
@@ -170,6 +186,7 @@ class Strategy:
         if n_epochs <= 0:
             return state, []
         if self.engine == "compiled":
+            self._check_capturable()
             out = self._run_compiled(state, client_data, rng, batch_size,
                                      n_epochs, self.participation)
             if out is not None:
@@ -291,23 +308,37 @@ class Strategy:
         return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
             self.device) for k in keys}
 
-    @torch.no_grad()
-    def scores(self, state, client_idx, data, batch_size=60):
-        """Per-sample scores for EVERY sample of one hospital."""
-        n = len(data["label"])
-        if n == 0:
-            return np.zeros((0,))
-        params = self.params_for_eval(state, client_idx)
-        bs = min(batch_size, n)
-        out = [self.adapter.full_scores(
-            params, self.to_device({k: v[s:s + bs] for k, v in data.items()}))
-            for s in range(0, n, bs)]
-        return torch.cat(out).cpu().numpy()
+    def scores(self, state, client_idx, data, batch_size=60,
+               chunk_batches=None):
+        """Per-sample scores for EVERY sample of one hospital, on
+        ``partition.grid_scores``' pad-and-slice grid (the function
+        ``ServableModel.scores`` calls: an export scores bit for bit as
+        its strategy); ``chunk_batches`` caps the batches moved to the
+        device at once."""
+        return grid_scores(self.adapter,
+                           self.params_for_eval(state, client_idx), data,
+                           batch_size, chunk_batches)
 
-    def scores_all(self, state, datas: list, batch_size=60):
+    def scores_all(self, state, datas: list, batch_size=60,
+                   chunk_batches=None):
         """Per-sample scores of every hospital, each by its own segments."""
-        return [self.scores(state, i, d, batch_size)
+        return [self.scores(state, i, d, batch_size, chunk_batches)
                 for i, d in enumerate(datas)]
+
+    # -- deployment (repro_torch.serving) ------------------------------------
+    def export(self, state, client_idx: int = 0, meta: dict | None = None):
+        """The deployable full model as a ``serving.ServableModel``: a
+        snapshot (clones on the strategy's device) of ``params_for_eval``,
+        hospital ``client_idx``'s client segment(s) stitched with the
+        server segment (centralized and FL: the one global tree), so its
+        ``scores`` equal this strategy's bit for bit."""
+        from repro_torch.serving.export import ServableModel
+        params = tree_map(lambda t: t.detach().clone(),
+                          self.params_for_eval(state, client_idx))
+        m = {"strategy": self.name, "client_idx": int(client_idx),
+             "n_clients": self.n_clients, **(meta or {})}
+        return ServableModel(adapter=self.adapter, params=params,
+                             shared=self.shared_eval_params, meta=m)
 
     def evaluate(self, state, clients, split="test", batch_size=60):
         """Pooled metrics across clients, each scored by its own front."""
@@ -368,7 +399,7 @@ def full_step_fn(adapter: SplitAdapter, opt: Optimizer, privacy=None):
             p = detached(params, True)
             loss = adapter.full_loss(p, batch, weights=weights)
             g, = _grad_trees(loss, p)
-            updates, opt_state = opt.update(g, opt_state)
+            updates, opt_state = opt.update(g, opt_state, params)
             return apply_updates(params, updates), opt_state, loss.detach()
         return step
 
@@ -377,7 +408,7 @@ def full_step_fn(adapter: SplitAdapter, opt: Optimizer, privacy=None):
     def dp_step(params, opt_state, batch, weights=None, draws=None):
         loss, g = vg(params, batch, noise=draws and draws["dp"],
                      weights=weights)
-        updates, opt_state = opt.update(g, opt_state)
+        updates, opt_state = opt.update(g, opt_state, params)
         return apply_updates(params, updates), opt_state, loss.detach()
     return dp_step
 
@@ -411,8 +442,8 @@ def split_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
             else None)
 
     def update(client_params, server_params, c_opt, s_opt, gc, gs, loss):
-        cu, c_opt = opt_client.update(gc, c_opt)
-        su, s_opt = opt_server.update(gs, s_opt)
+        cu, c_opt = opt_client.update(gc, c_opt, client_params)
+        su, s_opt = opt_server.update(gs, s_opt, server_params)
         return (apply_updates(client_params, cu),
                 apply_updates(server_params, su), c_opt, s_opt,
                 loss.detach())
@@ -505,10 +536,10 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     def update(clients, server, c_opts, s_opt, gcs, gs, losses):
         new_clients, new_c_opts = [], []
         for cp, gc, co in zip(clients, gcs, c_opts):
-            cu, co = opt_client.update(gc, co)
+            cu, co = opt_client.update(gc, co, cp)
             new_clients.append(apply_updates(cp, cu))
             new_c_opts.append(co)
-        su, s_opt = opt_server.update(gs, s_opt)
+        su, s_opt = opt_server.update(gs, s_opt, server)
         return (new_clients, apply_updates(server, su), new_c_opts, s_opt,
                 losses.detach())
 

@@ -19,6 +19,7 @@ from repro_torch.core.strategies.base import (EpochLog, Strategy,
 
 class Centralized(Strategy):
     name = "centralized"
+    shared_eval_params = True
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)

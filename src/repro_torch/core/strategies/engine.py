@@ -372,6 +372,10 @@ class Program:
     """
 
     bodies: tuple = ("step",)
+    #: the memory pool its graphs capture into (None: a private pool);
+    #: programs that never replay at once may share one
+    #: (``torch.cuda.graph_pool_handle()``), as the serving scorer's do
+    pool = None
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -430,7 +434,7 @@ class Program:
         graph = torch.cuda.CUDAGraph()
         tables.reserve(self.device)
         try:
-            with torch.cuda.graph(graph), tables:
+            with torch.cuda.graph(graph, pool=self.pool), tables:
                 body()
         finally:
             if collecting:

@@ -36,6 +36,7 @@ from repro_torch.core.strategies.base import (EpochLog, Strategy,
 
 class FedAvg(Strategy):
     name = "fl"
+    shared_eval_params = True
 
     def __init__(self, *args, aggregator=None, **kw):
         """``aggregator``: the rule's spec (``core.aggregate.

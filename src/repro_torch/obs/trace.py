@@ -1,0 +1,142 @@
+"""Run tracing — one merged Chrome-trace/Perfetto JSON per run
+(counterpart of ``repro/obs/trace.py``, host code: the port's spans are
+host wall-clock, its wire lane the simulator's simulated time).
+
+Clock domains, each on its own ``pid`` lane:
+
+  * **engine host** (``PID_ENGINE``): real wall-clock spans recorded by
+    ``Tracer`` around host phases;
+  * **wire** (``PID_WIRE``): the *simulated*-time transfer timelines from
+    ``wire.simulator`` (``simulate`` or ``timeline_from_accounting``) —
+    per-client tracks of upload/download events with tag + byte args.
+    Simulated seconds are mapped 1:1 onto trace microseconds; the lane is
+    a model of the wire, not a measurement;
+  * **serving** (``PID_SERVING``): the screening service's per-request
+    queue waits and per-batch pad / dispatch / readback spans.
+
+``write_chrome_trace`` emits the standard ``{"traceEvents": [...]}`` JSON
+that chrome://tracing and https://ui.perfetto.dev load directly.  The
+per-round telemetry lane (the reference's ``round_events``) comes with the
+port's telemetry.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+
+PID_ENGINE = 1
+PID_WIRE = 2
+PID_SERVING = 3
+
+
+def _meta(pid, name, tid=None, tname=None):
+    ev = [{"name": "process_name", "ph": "M", "pid": pid,
+           "args": {"name": name}}]
+    if tid is not None:
+        ev.append({"name": "thread_name", "ph": "M", "pid": pid,
+                   "tid": tid, "args": {"name": tname}})
+    return ev
+
+
+class Tracer:
+    """Host-side span tree: nested ``with tracer.span(name):`` blocks
+    become Chrome complete ("X") events on one engine-host track."""
+
+    def __init__(self, pid: int = PID_ENGINE, tid: int = 1):
+        self.pid, self.tid = pid, tid
+        self.events: list = []
+        self._depth = 0
+        self._t0 = time.perf_counter()
+
+    def _now_us(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e6
+
+    @contextlib.contextmanager
+    def span(self, name: str, **args):
+        t0 = self._now_us()
+        self._depth += 1
+        try:
+            yield self
+        finally:
+            self._depth -= 1
+            self.events.append({
+                "name": name, "ph": "X", "ts": t0,
+                "dur": max(self._now_us() - t0, 0.01),
+                "pid": self.pid, "tid": self.tid,
+                "args": {**args, "depth": self._depth}})
+
+    def event(self, name: str, t0_s: float, t1_s: float,
+              tid: int | None = None, **args) -> None:
+        """Record an externally-timed complete span from a pair of
+        ``tracer.now()`` readings (seconds since this tracer's epoch) —
+        used by the serving front end, whose phases are timed where they
+        happen (enqueue in the caller, dispatch in the batcher thread)
+        rather than around a single ``with`` block."""
+        self.events.append({
+            "name": name, "ph": "X", "ts": t0_s * 1e6,
+            "dur": max((t1_s - t0_s) * 1e6, 0.01),
+            "pid": self.pid, "tid": self.tid if tid is None else tid,
+            "args": args})
+
+    def now(self) -> float:
+        """Seconds since this tracer's epoch (pairs with ``event``)."""
+        return time.perf_counter() - self._t0
+
+    def find(self, name: str) -> dict | None:
+        """Most recent finished span with this name (e.g. "dispatch")."""
+        for ev in reversed(self.events):
+            if ev["name"] == name:
+                return ev
+        return None
+
+    def trace_events(self) -> list:
+        return _meta(self.pid, "engine host", self.tid, "strategy") \
+            + list(self.events)
+
+
+def wire_events(sim_result, pid: int = PID_WIRE, label: str = "") -> list:
+    """``wire.simulator.SimResult`` transfer events as per-client trace
+    tracks (simulated seconds -> trace microseconds)."""
+    name = f"wire (simulated{', ' + label if label else ''})"
+    out = _meta(pid, name)
+    clients = sorted({e.client for e in sim_result.events})
+    for tid, c in enumerate(clients, start=1):
+        out += _meta(pid, name, tid, f"client {c}")[1:]
+        for e in sim_result.events:
+            if e.client != c:
+                continue
+            out.append({"name": e.tag, "ph": "X", "ts": e.t_start * 1e6,
+                        "dur": max((e.t_end - e.t_start) * 1e6, 0.01),
+                        "pid": pid, "tid": tid,
+                        "args": {"bytes": int(e.nbytes),
+                                 "direction": e.direction}})
+    return out
+
+
+def merge_events(*event_lists, pid_offset: int = 0) -> list:
+    """Concatenate event lists into one trace; ``pid_offset`` shifts every
+    pid of the merged lists so several strategies' lanes can coexist in
+    one file (offset by, say, 10 per strategy)."""
+    out = []
+    for evs in event_lists:
+        for e in evs:
+            e = dict(e)
+            e["pid"] = e.get("pid", 0) + pid_offset
+            out.append(e)
+    return out
+
+
+def write_chrome_trace(events: list, path) -> str:
+    """Write ``{"traceEvents": [...]}`` JSON loadable by chrome://tracing
+    and Perfetto."""
+    path = str(path)
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events,
+                   "displayTimeUnit": "ms"}, f, indent=None)
+    return path
+
+
+__all__ = ["Tracer", "wire_events", "merge_events",
+           "write_chrome_trace", "PID_ENGINE", "PID_WIRE", "PID_SERVING"]

@@ -1,1 +1,2 @@
-"""Evaluation metrics (numpy copy of the reference's)."""
+"""Evaluation metrics and pytree checkpoints (counterparts of the
+reference's ``train.metrics`` and ``train.checkpoint``)."""

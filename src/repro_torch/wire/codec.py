@@ -25,7 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels import straight_through
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _nelem(spec) -> int:
@@ -51,6 +51,24 @@ class Codec:
 
     def roundtrip(self, x):
         raise NotImplementedError
+
+    # -- diagnostics ---------------------------------------------------------
+    @torch.no_grad()
+    def error(self, x) -> dict:
+        """Reconstruction error of one leaf (a host-side diagnostic)."""
+        r = self.roundtrip(x).float()
+        x = x.float()
+        diff = torch.abs(x - r)
+        denom = torch.clamp_min(torch.linalg.vector_norm(x.reshape(-1)),
+                                1e-12)
+        return {"max_abs": float(diff.max()),
+                "mae": float(diff.mean()),
+                "rel_l2": float(torch.linalg.vector_norm(diff.reshape(-1))
+                                / denom)}
+
+    def compression_ratio(self, spec) -> float:
+        raw = _nelem(spec) * spec.dtype.itemsize
+        return raw / max(self.wire_bytes(spec), 1)
 
 
 class IdentityCodec(Codec):
@@ -183,6 +201,14 @@ def make_codec(name) -> Codec:
                        "(identity | bf16 | int8 | topk[:frac])") from None
 
 
+CODECS = ("identity", "bf16", "int8", "topk:0.1")
+
+
 def tree_wire_bytes(codec: Codec, tree) -> int:
     """Total on-wire bytes of a boundary pytree (meta or real tensors)."""
     return int(sum(codec.wire_bytes(l) for l in tree_leaves(tree)))
+
+
+def tree_roundtrip(codec: Codec, tree):
+    """Apply the codec roundtrip to every leaf of a boundary pytree."""
+    return tree_map(codec.roundtrip, tree)

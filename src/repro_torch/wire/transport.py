@@ -22,8 +22,9 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_map
-from repro_torch.wire.codec import Codec, make_codec, tree_wire_bytes
+from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.wire.codec import (Codec, make_codec, tree_roundtrip,
+                                    tree_wire_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,8 +125,34 @@ class Transport:
             return math.nan
         return self.bytes_raw / self.bytes_on_wire
 
+    def reset(self):
+        self.bytes_on_wire = self.bytes_raw = 0.0
+        self.steps = 0
+        self.epoch_log.clear()
+
     def summary(self) -> dict:
         return {"codec": self.codec.name, "steps": self.steps,
                 "bytes_on_wire": self.bytes_on_wire,
                 "bytes_raw": self.bytes_raw,
                 "compression_ratio": self.compression_ratio}
+
+
+@torch.no_grad()
+def boundary_error(transport_or_codec, adapter, params, batch: dict) -> dict:
+    """Reconstruction error of the codec on REAL boundary activations: for
+    every crossing (``"front->"``, and ``"middle->"`` under NLS) a list of
+    ``Codec.error`` dicts, one per leaf; the next segment reads the
+    roundtripped tree, as in training.  ``batch`` holds tensors on the
+    params' device; over ``Transport("int8")`` on the card each leaf runs
+    K1 then K2 (``Int8Codec.roundtrip``) for its error and again for the
+    next segment's input."""
+    codec = (transport_or_codec.codec
+             if isinstance(transport_or_codec, Transport)
+             else make_codec(transport_or_codec))
+    x = adapter.inputs(batch)
+    errs = {}
+    for seg in adapter.seg_names[:-1]:
+        x = adapter.apply_seg(seg, params[seg], x, batch, False)
+        errs[f"{seg}->"] = [codec.error(l) for l in tree_leaves(x)]
+        x = tree_roundtrip(codec, x)
+    return errs
