@@ -152,6 +152,33 @@ Phases, in order; any failure exits nonzero before the last line:
      exactly one version's and the versions never going back, p50/p99
      latency, mean batch and requests per second, and ``Backpressure``
      past ``max_queue``;
+ 14. the observed grid (it also runs before phase 10): ``observe=`` at
+     full width, DenseNet-121 at 224^2, the main path's 5 hospitals (2
+     batches of 16 each), the fused int8 link, the compiled engine,
+     cuDNN's deterministic algorithms: (a) centralized, FL, SL-AM,
+     SFLv2-AC, SFLv3-AC and SFLv1-AC, 2 epochs, each ``run()`` then
+     ``run(observe=Telemetry())`` from the same start on the same
+     strategy: params bit-equal, the same replays per body and hand-kernel
+     launches per replay (K3 once per boundary leaf), one capture per
+     observed body, the family's taps on rows of 5 hospitals (centralized
+     1), all finite, the update cosine in [-1, 1], the last replay's cut
+     statistics the moments of the payload K3 shipped (its output held on
+     the graph's buffers), the stepwise engine's taps within 1e-4, and
+     each method's replay seconds with and without the taps; (b) FL with
+     DP-SGD (sigma 1.1, C 1) and SFLv3-AC with DP-SGD and cut noise (std
+     0.5): the same, the clip fraction in [0, 1] and equal across the
+     engines, the cut statistics on K4's output, K4/K5/K6 per replay as
+     unobserved, the epsilon series' last row ``privacy_report()``'s; (c)
+     FL under ``Participation(n_global=10, k=4, seed=0)``, 2 rounds: each
+     round's ``participation`` the sampled ids, unsampled columns NaN, and
+     the split family's ``ValueError``; (d) SFLv3-AC LS on the U-Net at
+     768^2 in bf16, 5 x 2 batches of 2, ``run()`` then ``run(observe=
+     True)`` on one strategy (one memory pool): params bit-equal, the cut
+     statistics over the 5-leaf boundary, both peaks; (e) on the observed
+     SFLv3 run: its tracer's spans, ``round_events`` and the simulated wire
+     lane written as one Chrome trace and read back, ``write_runlog`` /
+     ``write_report``, ``torch_profile`` around one observed replay (its
+     trace names K3's kernel), ``graph_cost`` and ``cost_summary``;
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
      bf16 rows, ``unet_leaf`` entries and ``bare_ms``, K4 with
      ``one_hospital``; launches of every phase), then the last line
@@ -2921,6 +2948,473 @@ def serving_path(dev, clients):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the observed grid — telemetry inside the captured graphs
+# ---------------------------------------------------------------------------
+
+OBS_METHODS = ("centralized", "fl", "sl_am", "sflv2_ac", "sflv3_ac",
+               "sflv1_ac")
+OBS_EPOCHS = 2
+OBS_PRIVATE = (("fl", PRIVATE_DP), ("sflv3_ac", PRIVATE_CUT))
+OBS_BAR = 1e-4        # compiled against stepwise: the reference's own bar
+OBS_CUT_BAR = 1e-4    # cut statistics against the held payload, relative
+CUT_KEYS = ("cut_mean", "cut_std", "cut_absmax")
+OBS_PART_N, OBS_PART_K = 10, 4
+
+
+def clone_state(state):
+    """A deep copy of a strategy state (tensors cloned, anything else
+    kept)."""
+    import torch
+
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else t, state)
+
+
+@contextlib.contextmanager
+def held_cut_outputs(held):
+    """Append to ``held`` the output rows of every K3 and K4 launch made
+    while a CUDA graph is being captured: the graph's own buffers, so
+    after a run they hold the last replay's cut payload exactly as it
+    shipped (K3's, or K4's with the noise)."""
+    import torch
+
+    from repro_torch.kernels.cut_fuse import ops
+
+    orig3, orig4 = ops.roundtrip_rows, ops.noise_roundtrip_rows
+
+    def keep3(x):
+        out = orig3(x)
+        if torch.cuda.is_current_stream_capturing():
+            held.append(out)
+        return out
+
+    def keep4(x, z, w):
+        out = orig4(x, z, w)
+        if torch.cuda.is_current_stream_capturing():
+            held.append(out)
+        return out
+    ops.roundtrip_rows, ops.noise_roundtrip_rows = keep3, keep4
+    try:
+        yield
+    finally:
+        ops.roundtrip_rows, ops.noise_roundtrip_rows = orig3, orig4
+
+
+def held_moments(held, hospitals, per_hospital):
+    """Per-hospital (mean, std, absmax) in float64 of the held payload of
+    one step: with ``per_hospital`` the i-th held tensor is hospital i's
+    (a private SFLv3 step launches K4 once per hospital), else each held
+    tensor (one per boundary leaf) holds every hospital's rows, split into
+    ``hospitals`` equal blocks (the batch axis leads the rows)."""
+    sums = [[0.0, 0.0, 0, 0.0] for _ in range(hospitals)]
+    for i, out in enumerate(held):
+        blocks = [out] if per_hospital else out.chunk(hospitals)
+        for j, b in enumerate(blocks):
+            j = i if per_hospital else j
+            x = b.double()
+            sums[j][0] += float(x.sum())
+            sums[j][1] += float(x.square().sum())
+            sums[j][2] += x.numel()
+            sums[j][3] = max(sums[j][3], float(x.abs().max()))
+    out = []
+    for s, sq, n, amax in sums:
+        mean = s / n
+        out.append((mean, math.sqrt(max(sq / n - mean * mean, 0.0)), amax))
+    return out
+
+
+def cut_stats_on_payload(label, prog, held, hospitals, per_hospital):
+    """Fail unless the observed program's last step's cut statistics
+    (its metric buffers at the last row) are the moments of the payload
+    the captured K3/K4 launches shipped at that step (``held``)."""
+    row = prog.n_steps - 1
+    want = held_moments(held, hospitals, per_hospital)
+    got = [[float(prog.metrics[k][row].reshape(-1)[j]) for k in CUT_KEYS]
+           for j in range(hospitals)]
+    err = max(abs(g - w) / max(abs(w), 1e-3) for gs, ws in zip(got, want)
+              for g, w in zip(gs, ws))
+    log(f"    cut statistics of the last replay against the {len(held)} "
+        f"held K3/K4 outputs: largest relative difference {err:.3g}")
+    if not err <= OBS_CUT_BAR:
+        fail(f"{label}: the cut statistics {got} are not the moments of "
+             f"the shipped payload {want}")
+
+
+def obs_run(strat, start, data, batch, epochs, observe, held=None):
+    """One ``Strategy.run`` of ``epochs`` from a copy of ``start`` (the
+    privacy step counter and accountants reset, so a second run draws the
+    first's noise), replays timed; returns the state, logs, the program
+    it ran, the replay seconds of the step body and the peak memory."""
+    import numpy as np
+    import torch
+
+    strat._key_step, strat._accountants = 0, None
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timed_programs(calls))
+        if held is not None:
+            stack.enter_context(held_cut_outputs(held))
+        state, logs = strat.run(clone_state(start), data,
+                                np.random.default_rng(1), batch, epochs,
+                                observe=observe)
+        torch.cuda.synchronize()
+    prog = strat._last_run["program"]
+    return dict(state=state, logs=logs, prog=prog,
+                step_s=[t for name, t, fresh in calls
+                        if name == "step" and not fresh],
+                peak=torch.cuda.max_memory_allocated())
+
+
+def params_equal(strat, a, b, n) -> bool:
+    import torch
+
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for c in range(n) for x, y in zip(
+        tree_leaves(strat.params_for_eval(a, c)),
+        tree_leaves(strat.params_for_eval(b, c))))
+
+
+def check_rounds(label, method, rt, n, epochs, dp):
+    """The family's key set, rows of ``n`` hospitals (centralized 1), all
+    finite, ``update_cosine`` in [-1, 1], ``clip_frac`` in [0, 1]."""
+    import numpy as np
+
+    keys = {"loss", "grad_norm", "update_norm"}
+    if method == "fl":
+        keys.add("update_cosine")
+    if method not in ("centralized", "fl"):
+        keys.update(CUT_KEYS)
+    if dp:
+        keys.add("clip_frac")
+    rows = 1 if method == "centralized" else n
+    if rt is None or len(rt.rounds) != epochs:
+        fail(f"{label}: no telemetry, or not one round per epoch")
+    for r in rt.rounds:
+        if set(r.metrics) != keys:
+            fail(f"{label}: keys {sorted(r.metrics)}, expected "
+                 f"{sorted(keys)}")
+        for k, v in r.metrics.items():
+            v = np.asarray(v)
+            if v.shape != (rows,) or not np.isfinite(v).all():
+                fail(f"{label}: {k} = {v}, expected {rows} finite values")
+        if "update_cosine" in keys and (
+                np.abs(r.metrics["update_cosine"]) > 1 + 1e-6).any():
+            fail(f"{label}: update cosine outside [-1, 1]")
+        if dp and not ((r.metrics["clip_frac"] >= 0)
+                       & (r.metrics["clip_frac"] <= 1)).all():
+            fail(f"{label}: clip fraction outside [0, 1]")
+
+
+def engines_agree(label, rc, rs, exact=()):
+    """Compiled against stepwise telemetry: within ``OBS_BAR``, the keys
+    of ``exact`` equal; returns the largest difference."""
+    import numpy as np
+
+    worst = 0.0
+    for a, b in zip(rc.rounds, rs.rounds):
+        if set(a.metrics) != set(b.metrics):
+            fail(f"{label}: the engines report different taps")
+        for k in a.metrics:
+            d = float(np.abs(np.asarray(a.metrics[k])
+                             - np.asarray(b.metrics[k])).max())
+            worst = max(worst, d)
+            if k in exact and d:
+                fail(f"{label}: {k} differs between the engines: "
+                     f"{a.metrics[k]} / {b.metrics[k]}")
+            if not d <= OBS_BAR:
+                fail(f"{label}: {k} differs between the engines by {d:.3g}")
+        if (a.epsilon is None) != (b.epsilon is None) or (
+                a.epsilon is not None
+                and not np.array_equal(a.epsilon, b.epsilon)):
+            fail(f"{label}: the epsilon series differ between the engines")
+    return worst
+
+
+def observed_pair(method, adapter, clients, batch, dev, privacy=None,
+                  precision="fp32", epochs=OBS_EPOCHS, stepwise=True,
+                  host=None):
+    """Phase 14's check of one method: ``run()``, ``run(observe=
+    Telemetry())`` and ``run()`` again from the same start on the same
+    compiled strategy (split family over the fused int8 link), then
+    (``stepwise``) the stepwise engine observed from the same start.
+    Fails unless params are bit-equal, the observed program has its own
+    graphs, captured once per body, and the unobserved one is replayed,
+    never recaptured, with the same replays per body and hand-kernel
+    launches per replay, the telemetry has the family's taps, the cut
+    statistics are the moments of the payload K3/K4 shipped, and the
+    engines agree.  ``host(strat, run, telemetry)`` is called right after
+    the observed run, its tracer attached (phase 14 (e)).  Returns the
+    row's printed numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch import optim as O
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.obs import Telemetry, Tracer
+    from repro_torch.privacy import PrivacyConfig
+    from repro_torch.tree import tree_leaves
+    from repro_torch.wire import Transport
+
+    split = method not in ("centralized", "fl")
+    sync = method.startswith(("sflv3", "sflv1"))
+    dp = privacy is not None and "clip_norm" in privacy
+    n = len(clients)
+    label = (f"{method} {precision}" + (" private" if privacy else ""))
+
+    def build(engine):
+        return make_strategy(
+            method, adapter, lambda: O.adam(1e-4), n,
+            transport=Transport("int8", device=dev) if split else None,
+            privacy=None if privacy is None else PrivacyConfig(**privacy),
+            engine=engine, precision=precision, device=dev)
+    strat = build("compiled")
+    start = strat.setup(0)
+    data = [{k: v[:2 * batch] for k, v in c.train.items()} for c in clients]
+    off = obs_run(strat, start, data, batch, epochs, False)
+    p = off["prog"]
+    graphs = dict(p.graphs)
+    if host is not None:
+        strat.attach_tracer(Tracer())
+    held = []
+    on = obs_run(strat, start, data, batch, epochs, Telemetry(), held)
+    q, rt = on["prog"], strat.last_run_telemetry
+    calls = dict(q.calls)
+    if split:
+        # before any other replay: the held outputs are the graph's own
+        # buffers, in the pool the unobserved program's graphs share
+        cut_stats_on_payload(label, q, held, n if sync else 1,
+                             sync and dp)
+    del held
+    if host is not None:
+        host(strat, on, rt)
+        strat.attach_tracer(None)
+    # the unobserved program once more: replayed, not recaptured
+    again = obs_run(strat, start, data, batch, epochs, False)
+    same = params_equal(strat, off["state"], on["state"], n)
+    mean_off = sum(off["step_s"] + again["step_s"]) / (
+        len(off["step_s"]) + len(again["step_s"]))
+    mean_on = sum(on["step_s"]) / len(on["step_s"])
+    log(f"  {label}: replay seconds unobserved {mean_off:.4f} (runs 1 and "
+        f"3), observed {mean_on:.4f} (run 2; overhead "
+        f"{100 * (mean_on / mean_off - 1):+.2f}%); replays "
+        f"{json.dumps(calls)}; per replay {json.dumps(q.per_replay)}; peak "
+        f"{off['peak'] / 2**30:.2f} / {on['peak'] / 2**30:.2f} / "
+        f"{again['peak'] / 2**30:.2f} GiB; params bit-equal {same}")
+    if p is q or len(strat._programs) != 2 or again["prog"] is not p:
+        fail(f"{label}: the observed run did not get its own program")
+    if p.graphs != graphs:
+        fail(f"{label}: observing recaptured the unobserved program")
+    if not same or not params_equal(strat, off["state"], again["state"],
+                                    n):
+        fail(f"{label}: observed params differ from unobserved ones")
+    twice = {k: 2 * v for k, v in calls.items()}
+    if p.calls != twice or p.per_replay != q.per_replay:
+        fail(f"{label}: replays {p.calls} over two runs / {calls} or "
+             f"launches per replay {p.per_replay} / {q.per_replay} differ")
+    if q.captures != len(q.bodies) or p.captures != len(p.bodies):
+        fail(f"{label}: {q.captures} captures of {len(q.bodies)} bodies")
+    check_rounds(label, method, rt, n, epochs, dp)
+    if [l.telemetry for l in on["logs"]] != rt.rounds:
+        fail(f"{label}: EpochLog.telemetry is not the run's rounds")
+    if split and privacy is None:
+        example = {k: v[:batch] for k, v in clients[0].train.items()}
+        leaves = sum(len(tree_leaves(t)) for t in
+                     strat.adapter.boundary_specs(example).values())
+        per = q.per_replay.get("step", {})
+        if per != {"cut_roundtrip": leaves}:
+            fail(f"{label}: launches per replay {per}, expected K3 once "
+                 f"per boundary leaf ({leaves})")
+    worst = None
+    if stepwise:
+        sw = build("stepwise")
+        sw.run(clone_state(start), data, np.random.default_rng(1), batch,
+               epochs, observe=Telemetry())
+        worst = engines_agree(label, rt, sw.last_run_telemetry,
+                              ("clip_frac",))
+        log(f"    stepwise engine observed: largest difference {worst:.3g}")
+        del sw
+    if dp:
+        eps = rt.rounds[-1].epsilon
+        report = [r["epsilon"] for r in strat.privacy_report()]
+        fracs = [r.scalars()["clip_frac"] for r in rt.rounds]
+        log(f"    clip fraction {fracs}; epsilon {eps.tolist()}")
+        if eps is None or eps.tolist() != report:
+            fail(f"{label}: the last epsilon row {eps} is not "
+                 f"privacy_report()'s {report}")
+    del strat, off, on, again
+    torch.cuda.empty_cache()
+    return dict(label=label, unobserved_s=mean_off, observed_s=mean_on,
+                worst=worst)
+
+
+def observed_participation(dev, adapter):
+    """Phase 14 (c): FL under ``Participation(n_global=10, k=4, seed=0)``,
+    2 rounds, observed: each round's ``participation`` the sampled ids,
+    the unsampled columns NaN and the sampled ones finite; the split
+    family refuses ``observe`` with participation."""
+    import numpy as np
+
+    from repro_torch import optim as O
+    from repro_torch.core.participation import Participation
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.data.synthetic import make_cxr_clients
+    from repro_torch.obs import Telemetry
+
+    many = make_cxr_clients(seed=1, n_clients=OBS_PART_N,
+                            train_per_client=BATCH, val_per_client=2,
+                            test_per_client=2, image_size=224)
+    part = Participation(n_global=OBS_PART_N, k=OBS_PART_K, seed=0)
+    strat = make_strategy("fl", adapter, lambda: O.adam(1e-4), OBS_PART_N,
+                          participation=part, observe=Telemetry(),
+                          device=dev)
+    strat.run(strat.setup(0), [c.train for c in many],
+              np.random.default_rng(1), BATCH, 2)
+    rt = strat.last_run_telemetry
+    for e, r in enumerate(rt.rounds):
+        ids = part.round_ids(e).tolist()
+        log(f"  fl K-of-N round {e}: participation {r.participation.tolist()}"
+            f", loss {np.round(r.metrics['loss'], 4).tolist()}")
+        if r.participation.tolist() != ids:
+            fail(f"fl K-of-N: round {e} reports {r.participation}, sampled "
+                 f"{ids}")
+        for k, v in r.metrics.items():
+            out = [c for c in range(OBS_PART_N) if c not in ids]
+            if not (np.isnan(v[out]).all() and np.isfinite(v[ids]).all()):
+                fail(f"fl K-of-N: {k} = {v}: unsampled columns must be NaN, "
+                     "sampled ones finite")
+    try:
+        make_strategy("sl_am", adapter, lambda: O.adam(1e-4), OBS_PART_N,
+                      participation=part, observe=True, device=dev)
+    except ValueError as e:
+        log(f"  sl_am K-of-N observed: ValueError ({e})")
+    else:
+        fail("the split family accepted observe with participation")
+
+
+def observed_host_side(strat, on, rt, clients, tmp):
+    """Phase 14 (e): the attached tracer's spans, ``round_events`` and the
+    simulated wire lane written as one Chrome trace and read back,
+    ``write_runlog``/``write_report``, ``torch_profile`` around one
+    observed replay (its trace must name K3's kernel), and ``graph_cost``
+    / ``cost_summary`` of the last run."""
+    import os
+    import re
+
+    from repro_torch.obs import (cost_summary, graph_cost, round_events,
+                                 torch_profile, wire_events,
+                                 write_chrome_trace, write_report,
+                                 write_runlog)
+    from repro_torch.wire.simulator import timeline_from_accounting
+
+    tracer = strat._tracer
+    spans = [e["name"] for e in tracer.events]
+    events = tracer.trace_events() + round_events(rt, tracer.find(
+        "dispatch"))
+    sim = timeline_from_accounting(strat.transport,
+                                   n_val=[len(c.val["label"])
+                                          for c in clients],
+                                   batch_size=BATCH)
+    events += wire_events(sim, label=strat.name)
+    path = write_chrome_trace(events, os.path.join(tmp, "trace.json"))
+    back = json.load(open(path))["traceEvents"]
+    names = {e["name"] for e in back}
+    log(f"  trace: spans {spans}; {len(back)} events written and read "
+        f"back")
+    if spans != ["pack", "dispatch", "run"] or len(back) != len(events) or \
+            not {"round 0", "round 1"} <= names:
+        fail("the observed run's trace lacks its spans or round slices")
+    cost = cost_summary(strat, wall_seconds=1.0,
+                        total_steps=sum(l.steps for l in on["logs"]))
+    runlog = write_runlog(tmp, strat.name, telemetry=rt, cost=cost)
+    report = write_report(tmp, strat.name, rt, cost=cost)
+    if len(json.load(open(runlog))["telemetry"]["rounds"]) != len(
+            rt.rounds) or "| round |" not in open(report).read():
+        fail("the run log or report lacks the run's rounds")
+    prog = on["prog"]
+    graph = graph_cost(strat)
+    log(f"  graph_cost {json.dumps(graph)}")
+    log(f"  cost_summary keys {sorted(cost)}")
+    if graph is None or graph["replays"] != prog.calls or \
+            graph["launches_per_replay"] != prog.per_replay:
+        fail("graph_cost does not describe the last run's program")
+    with torch_profile(os.path.join(tmp, "profile")) as prof:
+        prog.t.zero_()
+        prog("step")
+    kernels = {e.get("name", "") for e in json.load(
+        open(prof.trace_path))["traceEvents"] if e.get("cat") == "kernel"}
+    k3 = sorted(k for k in kernels
+                if re.search(r"(?<!noise_)roundtrip(_vec)?_kernel", k))
+    log(f"  torch_profile of one observed replay: {len(kernels)} kernels, "
+        f"K3 as {k3[:2]}")
+    if not k3:
+        fail("the profiled observed replay does not name K3's kernel")
+
+
+def observed_path(dev, clients):
+    """Phase 14: ``observe=`` at full width, DenseNet-121 at 224^2, the
+    main path's 5 hospitals, batch 16, the fused int8 link, the compiled
+    engine, cuDNN's deterministic algorithms: (a) every method of the grid
+    observed against unobserved (``observed_pair``), (b) FL with DP-SGD
+    and SFLv3-AC with DP-SGD and cut noise, (c) participation, (d) the
+    U-Net at 768^2 in bf16, (e) the host side.  Returns the launches of
+    K3-K6 in the phase."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.paper_models import DENSENET121_PAPER, UNET_PAPER
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.data.synthetic import make_cxr_clients
+    from repro_torch.models.cnn import build_densenet, build_unet
+
+    adapter = cnn_adapter(build_densenet(DENSENET121_PAPER))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rows = []
+    try:
+        reset_launches()
+        log(" (a) every method, observed against unobserved")
+        with tempfile.TemporaryDirectory() as tmp:
+            def host(strat, on, rt):
+                log(" (e) host side, on the observed SFLv3-AC run")
+                observed_host_side(strat, on, rt, clients, tmp)
+            for method in OBS_METHODS:
+                rows.append(observed_pair(
+                    method, adapter, clients, BATCH, dev,
+                    host=host if method == "sflv3_ac" else None))
+        log(" (b) privately")
+        for method, privacy in OBS_PRIVATE:
+            rows.append(observed_pair(method, adapter, clients, BATCH, dev,
+                                      privacy=privacy))
+        log(" (c) participation")
+        observed_participation(dev, adapter)
+        torch.cuda.empty_cache()
+        log(f" (d) the U-Net at {UNET_SIZE}^2, bf16")
+        unet_clients = make_cxr_clients(
+            seed=0, n_clients=5, train_per_client=2 * UNET_BATCH,
+            val_per_client=UNET_BATCH, test_per_client=UNET_BATCH,
+            image_size=UNET_SIZE)
+        rows.append(observed_pair(
+            "sflv3_ac", cnn_adapter(build_unet(UNET_PAPER)), unet_clients,
+            UNET_BATCH, dev, precision="bf16", epochs=1, stepwise=False))
+        del unet_clients
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("  replay overhead of the taps: " + ", ".join(
+        f"{r['label']} {100 * (r['observed_s'] / r['unobserved_s'] - 1):+.2f}%"
+        for r in rows))
+    launches = {k: v.launches for k, v in path_kernels().items()
+                if k in ("K3", "K4", "K5", "K6")}
+    log(f"  launches in phase 14: {json.dumps(launches)}")
+    if not all(launches.values()):
+        fail(f"a kernel of the observed path never launched: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 7: the LM serving slice
 # ---------------------------------------------------------------------------
 
@@ -3335,6 +3829,12 @@ def main():
     phase("phase 13: after training — schedule, wire simulator, export, "
           "checkpoints, screening service, DenseNet-121 at 224^2")
     for key, n in serving_path(dev, clients).items():
+        launches[key] += n
+
+    phase("phase 14: the observed grid — telemetry inside the captured "
+          "graphs, DenseNet-121 at 224^2 and the U-Net at "
+          f"{UNET_SIZE}^2")
+    for key, n in observed_path(dev, clients).items():
         launches[key] += n
     del clients
 

@@ -6,10 +6,10 @@ U-shaped (NLS) cut, on the compiled engine (the default) or the stepwise
 one, in f32 or bf16, and with a ``PrivacyConfig``: DP-SGD on every
 method, cut-layer noise on the split family, secure aggregation on FL;
 with per-round ``participation`` (FL and the split family, compiled
-engine) and, on FL, any registered ``aggregator``.  Every option still
-unported raises ``NotImplementedError`` naming the ROADMAP item that
-ports it; the combinations the reference refuses raise its
-``ValueError``.
+engine), on FL any registered ``aggregator``, and observed
+(``observe=``, ``repro_torch.obs``).  Every option still unported raises
+``NotImplementedError`` naming the ROADMAP item that ports it; the
+combinations the reference refuses raise its ``ValueError``.
 """
 
 from repro_torch.core.partition import cast_adapter
@@ -68,15 +68,18 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
     ``"staleness_discounted"``, ``"hierarchical"``...) or an
     ``Aggregator`` (the way to set its parameters); on the compiled engine
     it runs inside the captured round body.
+
+    ``observe`` (``repro_torch.obs.Telemetry`` | True | None) turns on the
+    in-program metric taps for every ``Strategy.run`` (``run(observe=)``
+    overrides it per run): per-round x per-hospital loss, gradient and
+    update norms, FL's update cosine, the cut-layer payload's moments, the
+    DP clip fraction and the per-round epsilon, computed inside the
+    captured steps (``obs.telemetry``).  The split family refuses it
+    together with ``participation``, as the reference does.
     """
-    unported = [
-        (observe is not None, "observe=", "M10 (observability)"),
-        (shard, "shard=True", "M11 (placement)"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP "
-                                      f"{item}")
+    if shard:
+        raise NotImplementedError("shard=True is not ported yet: ROADMAP "
+                                  "M11 (placement)")
     if participation is not None and method == "centralized":
         raise ValueError("centralized pools all hospitals; there is no "
                          "per-round cohort to sample")
@@ -106,7 +109,7 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
                          f"{device}")
     use_full_fp32(device)
     kw = dict(privacy=privacy, engine=engine, drop_remainder=drop_remainder,
-              device=device)
+              device=device, observe=observe)
     if method == "centralized":
         return Centralized(adapter, opt_factory, n_clients, **kw)
     kw["participation"] = participation

@@ -21,6 +21,7 @@ segment(s).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -30,6 +31,7 @@ import torch
 from repro_torch.core.participation import Participation, as_participation
 from repro_torch.core.partition import (SplitAdapter, as_meta, detached,
                                         grid_scores)
+from repro_torch.obs import telemetry as T
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.privacy.dpsgd import (crossings, cut_noise_boundary,
                                        dp_value_and_grad, first_rows,
@@ -45,11 +47,13 @@ class EpochLog:
     full batch); ``mean_loss`` is the example-weighted mean, so a compiled
     (pad-and-mask) epoch and a stepwise epoch over the same data report
     the same statistics.  ``client_steps`` counts the optimizer steps of
-    each hospital (masked padding steps excluded)."""
+    each hospital (masked padding steps excluded).  ``telemetry`` is the
+    epoch's ``obs.telemetry.RoundTelemetry`` when it ran observed."""
     losses: list
     steps: int
     weights: list | None = None
     client_steps: list[int] | None = None
+    telemetry: object = None
 
     @property
     def mean_loss(self):
@@ -83,11 +87,15 @@ class Strategy:
     #: every hospital scores with the same params (centralized, FL); an
     #: export records it, as the reference's does
     shared_eval_params: bool = False
+    #: centralized: the epsilon series composes at the pooled rate
+    _eps_pooled: bool = False
+    #: the step crosses a cut layer (the cut statistics apply)
+    _has_cut: bool = False
 
     def __init__(self, adapter: SplitAdapter, opt_factory: Callable[[], Optimizer],
                  n_clients: int, device: torch.device, privacy=None,
                  engine: str = "compiled", drop_remainder: bool = True,
-                 participation=None):
+                 participation=None, observe=None):
         if engine not in ("stepwise", "compiled"):
             raise ValueError(f"unknown engine {engine!r}")
         self.participation = as_participation(participation)
@@ -110,8 +118,21 @@ class Strategy:
         self._accountants = None
         self._key_step = 0
         self._spec_cache: dict = {}     # batch shape -> cut noise specs
-        # the compiled engine's programs, one per packed layout
+        # the compiled engine's programs, one per packed layout and
+        # telemetry spec, all captured into one memory pool (two programs
+        # of a strategy never replay at once)
         self._programs: dict = {}
+        self._pool = None
+        # observability (repro_torch.obs): the metric-tap spec, the span
+        # tracer and the dispatch counters, all inert when unused
+        self.observe = T.as_telemetry(observe)
+        self._tel_active = self.observe
+        self._obs_steps: dict = {}      # (spec, slots) -> observed step
+        self._tracer = None
+        self._dispatches = 0
+        self._run_calls = 0
+        self._last_run = None           # graph_cost's record of the run
+        self.last_run_telemetry = None
 
     # -- to implement ---------------------------------------------------------
     def setup(self, seed=0):
@@ -179,25 +200,172 @@ class Strategy:
         a run in which no hospital has a batch, and the stepwise engine,
         run the epochs one after another.  Under ``participation`` each
         round trains only its sampled hospitals (a run that trains nothing
-        returns no logs)."""
-        if observe is not None:
-            raise NotImplementedError("observe= is not ported yet: ROADMAP "
-                                      "M10 (observability)")
+        returns no logs).
+
+        ``observe`` (``obs.Telemetry`` | True | False | None) overrides
+        the constructor's telemetry spec for this run: the metric taps
+        run inside the captured steps and land in device buffers beside
+        the losses (the run replays as many graphs as an unobserved one,
+        and params are bit-equal to an unobserved run's), and the reduced
+        per-round telemetry lands on each ``EpochLog.telemetry`` and on
+        ``self.last_run_telemetry``.  ``None`` inherits the constructor's
+        spec; ``False`` turns it off for this run."""
         if n_epochs <= 0:
             return state, []
-        if self.engine == "compiled":
-            self._check_capturable()
-            out = self._run_compiled(state, client_data, rng, batch_size,
-                                     n_epochs, self.participation)
-            if out is not None:
-                return out
-            if self.participation is not None:
-                return state, []
-        logs = []
-        for _ in range(n_epochs):
-            state, log = self.run_epoch(state, client_data, rng, batch_size)
-            logs.append(log)
-        return state, logs
+        tel = (self.observe if observe is None
+               else None if observe is False else T.as_telemetry(observe))
+        prev, self._tel_active = self._tel_active, tel
+        try:
+            with self._span("run", strategy=self.name, n_epochs=n_epochs):
+                if self.engine == "compiled":
+                    self._check_capturable()
+                    out = self._run_compiled(state, client_data, rng,
+                                             batch_size, n_epochs,
+                                             self.participation)
+                    if out is not None:
+                        state, logs = out
+                        return state, self._finish_run(client_data,
+                                                       batch_size, logs)
+                    if self.participation is not None:
+                        return state, self._finish_run(client_data,
+                                                       batch_size, [])
+                logs = []
+                for i in range(n_epochs):
+                    with self._span(f"round {i}"):
+                        state, log = self.run_epoch(state, client_data, rng,
+                                                    batch_size)
+                    logs.append(log)
+                return state, self._finish_run(client_data, batch_size,
+                                               logs)
+        finally:
+            self._tel_active = prev
+
+    def _finish_run(self, client_data, batch_size, logs):
+        """Assemble ``last_run_telemetry`` (one RoundTelemetry per epoch
+        plus the per-round cumulative RDP epsilon series) from the logs an
+        observed run produced."""
+        tel = self._tel
+        if tel is None:
+            self.last_run_telemetry = None
+            return logs
+        rounds = []
+        for i, log in enumerate(logs):
+            r = log.telemetry
+            if r is None:
+                r = T.RoundTelemetry(i, {})
+                log.telemetry = r
+            r.round_index = i
+            rounds.append(r)
+        if tel.epsilon and self._dp:
+            ns = [len(d["label"]) for d in client_data]
+            kw = {}
+            part = self.participation
+            if part is not None and part.kind != "schedule":
+                # amplification: every hospital composes every round at
+                # the amplified rate over its would-be step count (the
+                # realized zeros of unsampled rounds don't apply here);
+                # deterministic schedules keep the realized client_steps
+                kw = dict(q_scale=part.rate,
+                          steps_override=getattr(self, "_last_part_nbs",
+                                                 None))
+            eps = T.epsilon_rounds(self.privacy, logs, ns, batch_size,
+                                   pooled=self._eps_pooled, **kw)
+            if eps is not None:
+                for r, e in zip(rounds, eps):
+                    r.epsilon = e
+        self.last_run_telemetry = T.RunTelemetry(self.name, self.n_clients,
+                                                 rounds)
+        return logs
+
+    # -- observability plumbing (repro_torch.obs) ----------------------------
+    @property
+    def _tel(self):
+        """The active Telemetry spec (run()'s override or the
+        constructor's)."""
+        return self._tel_active
+
+    def attach_tracer(self, tracer):
+        """Attach an ``obs.trace.Tracer``: the host phases (``run``,
+        ``pack``, ``dispatch``, and ``round i`` on the per-epoch path) are
+        recorded as spans.  On the card ``dispatch`` spans the replay
+        loop up to the run's one readback: replays are asynchronous, so
+        the host reaches the readback early and waits there for the
+        device, but the per-epoch batch copies from pageable host memory
+        synchronise with it, so the span is the device's time for the
+        run, give or take the last epoch's copy."""
+        self._tracer = tracer
+        return tracer
+
+    def _span(self, name, **args):
+        if self._tracer is None:
+            return contextlib.nullcontext()
+        return self._tracer.span(name, **args)
+
+    def _count_dispatch(self, n: int = 1):
+        """Tally host->device training-program invocations: a stepwise
+        step counts one, a compiled run one per replay (``Program.calls``:
+        each step, and each begin and round body)."""
+        self._dispatches += n
+
+    def _observed_step(self, tel, n_slots=None):
+        """The step function of spec ``tel`` (None: unobserved) over
+        ``n_slots`` hospitals (SFLv3/v1's participating step; None: every
+        hospital): the unobserved full step is ``_step``, any other is
+        built once per (spec, slot count) by ``_make_step`` and kept apart
+        from it, as the reference's ``_get_obs`` keeps its observed
+        programs."""
+        if n_slots == self.n_clients:
+            n_slots = None
+        if tel is None and n_slots is None:
+            return self._step
+        key = (tel, n_slots)
+        if key not in self._obs_steps:
+            self._obs_steps[key] = self._make_step(tel, n_slots)
+        return self._obs_steps[key]
+
+    def _make_step(self, telemetry=None, n_slots=None):
+        """The strategy's step function under ``telemetry`` over
+        ``n_slots`` hospitals (None: ``n_clients``)."""
+        raise NotImplementedError
+
+    def _metric_keys(self, tel) -> tuple:
+        """The per-step metric keys an observed step of ``tel`` emits."""
+        if tel is None:
+            return ()
+        return tel.step_keys(dp=self._dp, cut=self._has_cut)
+
+    def _graph_pool(self):
+        """The ``engine.GraphPool`` every program of this strategy warms up
+        and captures in (None on the CPU): programs never replay at once,
+        so an observed program reuses the memory of the unobserved one's
+        graphs instead of holding a second pool beside it."""
+        if self._pool is None and self.device.type == "cuda":
+            from repro_torch.core.strategies.engine import GraphPool
+            self._pool = GraphPool(self.device)
+        return self._pool
+
+    def _dispatch(self, prog, calls_before, per_step):
+        """Book one compiled run of ``prog``: its replays as dispatches,
+        one run call, and the record ``obs.profile.graph_cost`` reads
+        (the program, its replays in this run, the hospitals one step
+        trains, the peak memory)."""
+        calls = {k: n - calls_before.get(k, 0) for k, n in prog.calls.items()}
+        self._count_dispatch(sum(calls.values()))
+        self._run_calls += 1
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else None)
+        self._last_run = dict(program=prog, replays=calls,
+                              per_step=per_step, peak_bytes=peak)
+
+    def _host_metrics(self, mets: list) -> dict:
+        """A stepwise epoch's per-step metric dicts -> ``{key: [steps,
+        ...] numpy}``, read back in one copy."""
+        if not mets or not mets[0]:
+            return {}
+        keys = list(mets[0])
+        stacked = torch.stack([torch.stack([m[k] for k in keys])
+                               for m in mets]).cpu().numpy()
+        return {k: stacked[:, i] for i, k in enumerate(keys)}
 
     # -- privacy plumbing -----------------------------------------------------
     @property
@@ -383,7 +551,31 @@ def _client_params(adapter, cp, sp):
     return params
 
 
-def full_step_fn(adapter: SplitAdapter, opt: Optimizer, privacy=None):
+class _Taps:
+    """Which metric taps one observed step function computes: the static
+    key set of ``telemetry.step_keys`` (None: the step is unobserved and
+    returns no metric dict)."""
+
+    def __init__(self, telemetry, dp: bool, cut: bool):
+        self.on = telemetry is not None
+        keys = telemetry.step_keys(dp=dp, cut=cut) if self.on else ()
+        self.norms = "grad_norm" in keys
+        self.cut = "cut_mean" in keys
+        self.clip = "clip_frac" in keys
+
+    def boundary(self, hook, sink):
+        """``hook`` recording every crossing into ``sink`` when the cut
+        statistics are on (``telemetry.observing_boundary``)."""
+        return T.observing_boundary(hook, sink) if self.cut else hook
+
+
+def _norm_taps(met, sq_grads, sq_updates):
+    met["grad_norm"] = sq_grads.sqrt()
+    met["update_norm"] = sq_updates.sqrt()
+
+
+def full_step_fn(adapter: SplitAdapter, opt: Optimizer, privacy=None,
+                 telemetry=None):
     """Step over ALL segments jointly (centralized, FL local training):
     ``step(params, opt_state, batch, weights=None, draws=None) -> (params,
     opt_state, loss)``, the loss detached; ``weights`` (B,) masks the
@@ -393,28 +585,53 @@ def full_step_fn(adapter: SplitAdapter, opt: Optimizer, privacy=None):
     ``privacy.dpsgd``'s estimator over the per-example gradients of the
     whole model (K5/K6 for the clip), ``weights`` weighting the examples
     inside it, and ``draws`` is the step's ``hospital_draws`` (its ``"dp"``
-    tree the pre-drawn gradient noise)."""
-    if privacy is None or not privacy.dp_enabled:
+    tree the pre-drawn gradient noise).
+
+    With a ``telemetry`` spec (``obs.Telemetry``) the step returns one
+    extra trailing dict of 0-d f32 metric taps (the keys of
+    ``telemetry.step_keys(dp, cut=False)``) computed from intermediates
+    the step already has: the gradient and update norms, and under DP the
+    clip fraction of K5's per-example norms.  The taps draw nothing and
+    write nothing the step reads, so params stay bit-equal to the
+    unobserved step's."""
+    dp = privacy is not None and privacy.dp_enabled
+    taps = _Taps(telemetry, dp, cut=False)
+
+    def finish(params, opt_state, g, loss, norms=None, weights=None):
+        updates, opt_state = opt.update(g, opt_state, params)
+        out = (apply_updates(params, updates), opt_state, loss.detach())
+        if not taps.on:
+            return out
+        met = {}
+        if taps.norms:
+            _norm_taps(met, *T.sq_norms(g, updates))
+        if taps.clip:
+            met["clip_frac"] = T.clip_fraction(norms, privacy.clip_norm,
+                                               weights)
+        return out + (met,)
+
+    if not dp:
         def step(params, opt_state, batch, weights=None, draws=None):
             p = detached(params, True)
             loss = adapter.full_loss(p, batch, weights=weights)
             g, = _grad_trees(loss, p)
-            updates, opt_state = opt.update(g, opt_state, params)
-            return apply_updates(params, updates), opt_state, loss.detach()
+            return finish(params, opt_state, g, loss)
         return step
 
-    vg = dp_value_and_grad(lambda p, b, e: adapter.full_loss(p, b), privacy)
+    vg = dp_value_and_grad(lambda p, b, e: adapter.full_loss(p, b), privacy,
+                           with_norms=taps.clip)
 
     def dp_step(params, opt_state, batch, weights=None, draws=None):
-        loss, g = vg(params, batch, noise=draws and draws["dp"],
-                     weights=weights)
-        updates, opt_state = opt.update(g, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss.detach()
+        out = vg(params, batch, noise=draws and draws["dp"],
+                 weights=weights)
+        return finish(params, opt_state, out[1], out[0],
+                      out[2]["norms"] if taps.clip else None, weights)
     return dp_step
 
 
 def split_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
-                  opt_server: Optimizer, transport=None, privacy=None):
+                  opt_server: Optimizer, transport=None, privacy=None,
+                  telemetry=None):
     """SL/SFLv2 step: the joint gradient through one hospital's client
     segment(s) and the server (numerically the paper's two-hop backprop;
     the hops are the transfers ``core.comm`` accounts).  With a
@@ -433,6 +650,13 @@ def split_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     estimator clips the per-example gradient of the joint ``{"c": client
     tree, "s": server}`` and weights the examples itself, so the boundary
     and the inner loss take no weights (the reference's rule).
+
+    With a ``telemetry`` spec the step returns one extra trailing metric
+    dict: the joint gradient and update norms, under DP the clip fraction,
+    and the moments of the FIRST crossing's payload (front->middle, the
+    cut) exactly as it ships, post-codec and post-noise (under DP each
+    example's moments come out of the per-example transform as aux and
+    are folded with the weights).
     """
     boundary = transport.boundary if transport is not None else None
     noised = None
@@ -440,44 +664,72 @@ def split_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
         noised = cut_noise_boundary(
             boundary, transport.fused_codec if transport is not None
             else None)
+    dp = privacy is not None and privacy.dp_enabled
+    taps = _Taps(telemetry, dp, cut=True)
 
-    def update(client_params, server_params, c_opt, s_opt, gc, gs, loss):
+    def update(client_params, server_params, c_opt, s_opt, gc, gs, loss,
+               met):
         cu, c_opt = opt_client.update(gc, c_opt, client_params)
         su, s_opt = opt_server.update(gs, s_opt, server_params)
-        return (apply_updates(client_params, cu),
-                apply_updates(server_params, su), c_opt, s_opt,
-                loss.detach())
+        out = (apply_updates(client_params, cu),
+               apply_updates(server_params, su), c_opt, s_opt,
+               loss.detach())
+        if not taps.on:
+            return out
+        if taps.norms:
+            sq = T.sq_norms(gc, gs, cu, su)
+            _norm_taps(met, sq[0] + sq[1], sq[2] + sq[3])
+        return out + (met,)
 
-    if privacy is None or not privacy.dp_enabled:
+    if not dp:
         def step(client_params, server_params, c_opt, s_opt, batch,
                  weights=None, draws=None):
             cp = detached(client_params, True)
             sp = detached(server_params, True)
-            hook = crossings(boundary, noised, draws and draws["cut"],
-                             weights)
+            sink = []
+            hook = taps.boundary(crossings(boundary, noised,
+                                           draws and draws["cut"], weights),
+                                 sink)
             loss = adapter.full_loss(_client_params(adapter, cp, sp), batch,
                                      boundary=hook, weights=weights)
             gc, gs = _grad_trees(loss, cp, sp)
+            met = {}
+            if taps.cut:
+                met.update(T.moments_to_stats(*T.payload_moments(sink[0],
+                                                                 weights)))
             return update(client_params, server_params, c_opt, s_opt, gc,
-                          gs, loss)
+                          gs, loss, met)
         return step
 
     def loss_fn(both, b, z):
-        return adapter.full_loss(_client_params(adapter, both["c"],
-                                                both["s"]), b,
-                                 boundary=crossings(boundary, noised, z))
+        sink = []
+        loss = adapter.full_loss(
+            _client_params(adapter, both["c"], both["s"]), b,
+            boundary=taps.boundary(crossings(boundary, noised, z), sink))
+        if taps.cut:
+            return loss, T.payload_moments(sink[0])
+        return loss
 
-    vg = dp_value_and_grad(loss_fn, privacy)
+    vg = dp_value_and_grad(loss_fn, privacy, has_aux=taps.cut,
+                           with_norms=taps.clip)
 
     def dp_step(client_params, server_params, c_opt, s_opt, batch,
                 weights=None, draws=None):
         # the hospital's cut noise covers its whole batch and enters the
         # per-example transform as a vmapped input
-        loss, g = vg({"c": client_params, "s": server_params}, batch,
-                     extra=draws and draws["cut"],
-                     noise=draws and draws["dp"], weights=weights)
+        out = vg({"c": client_params, "s": server_params}, batch,
+                 extra=draws and draws["cut"],
+                 noise=draws and draws["dp"], weights=weights)
+        loss, g = out[0], out[1]
+        met = {}
+        if taps.cut:
+            met.update(T.moments_to_stats(*T.combine_moments(
+                *out[2]["aux"], weights)))
+        if taps.clip:
+            met["clip_frac"] = T.clip_fraction(out[2]["norms"],
+                                               privacy.clip_norm, weights)
         return update(client_params, server_params, c_opt, s_opt, g["c"],
-                      g["s"], loss)
+                      g["s"], loss, met)
     return dp_step
 
 
@@ -491,9 +743,15 @@ def _split(tree, sizes):
             for i in range(len(sizes))]
 
 
+def _stacked_moments(moms):
+    """Per-hospital ``(mean, meansq, amax)`` triples -> the cut-stat dict
+    of ``(S,)`` tensors."""
+    return T.moments_to_stats(*(torch.stack(v) for v in zip(*moms)))
+
+
 def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
                   opt_server: Optimizer, n_clients: int, transport=None,
-                  privacy=None):
+                  privacy=None, telemetry=None):
     """SplitFedv3 step (paper Algorithm 1, batch-synchronous form; the
     reference's ``base.sflv3_step_fn`` without padding rows).
 
@@ -525,6 +783,14 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     gradients of {client segment, server} (K4 at its boundary, K5/K6 for
     the clip) before the server averages, so each hospital's guarantee
     stands on its own; each client keeps its own private gradient.
+
+    With a ``telemetry`` spec the step returns one extra trailing dict of
+    per-hospital ``(n_clients,)`` taps: the cut statistics of the first
+    crossing (the joint payload split back into each hospital's rows), the
+    joint norms ``sqrt(||client grad||^2 + ||server grad||^2)`` with the
+    shared averaged server gradient (under DP each hospital's own private
+    joint gradient), the update norms with the shared server update, and
+    under DP each hospital's clip fraction.
     """
     boundary = transport.boundary if transport is not None else None
     noised = None
@@ -532,16 +798,30 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
         noised = cut_noise_boundary(
             boundary, transport.fused_codec if transport is not None
             else None)
+    dp = privacy is not None and privacy.dp_enabled
+    taps = _Taps(telemetry, dp, cut=True)
 
-    def update(clients, server, c_opts, s_opt, gcs, gs, losses):
-        new_clients, new_c_opts = [], []
+    def update(clients, server, c_opts, s_opt, gcs, gs, losses, met,
+               server_grads):
+        new_clients, new_c_opts, cus = [], [], []
         for cp, gc, co in zip(clients, gcs, c_opts):
             cu, co = opt_client.update(gc, co, cp)
             new_clients.append(apply_updates(cp, cu))
             new_c_opts.append(co)
+            cus.append(cu)
         su, s_opt = opt_server.update(gs, s_opt, server)
-        return (new_clients, apply_updates(server, su), new_c_opts, s_opt,
-                losses.detach())
+        out = (new_clients, apply_updates(server, su), new_c_opts, s_opt,
+               losses.detach())
+        if not taps.on:
+            return out
+        if taps.norms:
+            # one multi-tensor norm over every tree: the hospitals' client
+            # grads, the server grad(s), the client updates, the server's
+            s, k = len(gcs), len(server_grads)
+            sq = T.sq_norms(*gcs, *server_grads, *cus, su)
+            _norm_taps(met, sq[:s] + sq[s:s + k],
+                       sq[s + k:2 * s + k] + sq[-1])
+        return out + (met,)
 
     def step_fn(clients, server, c_opts, s_opt, batches, draws=None):
         cps = [detached(cp, True) for cp in clients]
@@ -556,6 +836,10 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
         h = _cat(fronts)
         if hook is not None:
             h = hook(h)
+        met = {}
+        if taps.cut:
+            met.update(_stacked_moments([T.payload_moments(part)
+                                         for part in _split(h, sizes)]))
         h = adapter.apply_seg("middle", sp, h, joint, True)
         if adapter.nls:
             if hook is not None:
@@ -568,31 +852,51 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
                               for o, b in zip(outs, batches)])
         *gcs, gs = _grad_trees(losses.sum() / n_clients, *cps, sp)
         gcs = [tree_map(lambda g: g * n_clients, gc) for gc in gcs]
-        return update(clients, server, c_opts, s_opt, gcs, gs, losses)
+        return update(clients, server, c_opts, s_opt, gcs, gs, losses, met,
+                      [gs])
 
-    if privacy is None or not privacy.dp_enabled:
+    if not dp:
         return step_fn
 
     def loss_fn(both, b, z):
+        sink = []
         params = _client_params(adapter, both["c"], both["s"])
-        return adapter.full_loss(params, b,
-                                 boundary=crossings(boundary, noised, z))
+        loss = adapter.full_loss(
+            params, b,
+            boundary=taps.boundary(crossings(boundary, noised, z), sink))
+        if taps.cut:
+            return loss, T.payload_moments(sink[0])
+        return loss
 
-    vg = dp_value_and_grad(loss_fn, privacy)
+    vg = dp_value_and_grad(loss_fn, privacy, has_aux=taps.cut,
+                           with_norms=taps.clip)
 
     def dp_step(clients, server, c_opts, s_opt, batches, draws=None):
-        losses, gcs, gs = [], [], None
+        losses, gcs, gss, moms, clips = [], [], [], [], []
         for cp, b, d in zip(clients, batches, draws):
             # the hospital's cut noise covers its whole batch and enters
             # the per-example transform as a vmapped input
-            loss, g = vg({"c": cp, "s": server}, b, extra=d["cut"],
-                         noise=d["dp"])
-            losses.append(loss)
-            gcs.append(g["c"])
-            gs = g["s"] if gs is None else tree_map(torch.add, gs, g["s"])
+            out = vg({"c": cp, "s": server}, b, extra=d["cut"],
+                     noise=d["dp"])
+            losses.append(out[0])
+            gcs.append(out[1]["c"])
+            gss.append(out[1]["s"])
+            if taps.cut:
+                moms.append(T.combine_moments(*out[2]["aux"]))
+            if taps.clip:
+                clips.append(T.clip_fraction(out[2]["norms"],
+                                             privacy.clip_norm))
+        gs = gss[0]
+        for g in gss[1:]:
+            gs = tree_map(torch.add, gs, g)
         gs = tree_map(lambda x: x / n_clients, gs)
+        met = {}
+        if taps.cut:
+            met.update(_stacked_moments(moms))
+        if taps.clip:
+            met["clip_frac"] = torch.stack(clips)
         return update(clients, server, c_opts, s_opt, gcs, gs,
-                      torch.stack(losses))
+                      torch.stack(losses), met, gss)
 
     return dp_step
 

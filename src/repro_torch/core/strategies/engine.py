@@ -56,24 +56,33 @@ CUDA graph of the step, replayed:
     hospital column holds the GLOBAL id, which the noise draws read;
   * **analytic accounting**: wire bytes and epsilon of a whole run are
     composed on the host from shapes and counts (``Transport.account(
-    count=)``, ``Strategy._dp_account(count=)``).
+    count=)``, ``Strategy._dp_account(count=)``);
+  * **telemetry** (``obs.telemetry``): an observed run steps its own
+    program (cached apart, keyed on the spec), whose step function writes
+    each step's metric taps into device buffers beside the losses and
+    whose FL round writes the update cosine; they come back with the
+    losses.  A strategy's programs warm up and capture in one
+    ``GraphPool``.
 
 A whole ``Strategy.run(n_epochs)`` packs every round up front, then for
 each round copies its batches and step table into the static buffers and
-replays; the losses of the run come back from one device buffer at its
-end.
+replays; the losses (and metrics) of the run come back in one copy at
+its end.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.core.aggregate import stacked_mean_sync, tree_mean
 from repro_torch.kernels import build as B
+from repro_torch.obs.telemetry import update_cosine
 from repro_torch.tree import (stack_trees, tree_leaves, tree_map, tree_put,
                               tree_select, tree_take)
 
@@ -351,6 +360,46 @@ def _clone(tree):
     return tree_map(torch.clone, tree)
 
 
+class GraphPool:
+    """One memory pool and one stream for every warm-up and capture of a
+    strategy's programs, which never replay at once.
+
+    A graph's intermediates are free blocks of its pool between replays,
+    and the caching allocator reuses a free block only on the stream that
+    freed it: so every capture runs on ``stream``.  The warm-ups of the
+    strategy's FIRST program run in ordinary memory: any state a body
+    creates lazily on its first call and keeps (an aggregator's device
+    table) must not sit in a block that a graph's intermediates overwrite
+    at every replay.  A later program's bodies (the observed one's) find
+    that state made, and warm up inside the pool (the current thread's
+    allocations routed there, the backward pass kept on that thread, as
+    PyTorch's own CUDA graph trees warm up), so they run in the memory of
+    the first program's graphs instead of beside it: on the U-Net at 768^2
+    a step's graph holds tens of GiB."""
+
+    def __init__(self, device: torch.device):
+        self.handle = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        self.programs = 0        # programs with a graph in the pool
+
+    @contextlib.contextmanager
+    def warm_up(self, device: torch.device, own: bool):
+        """Route the warm-up into the pool when a program other than the
+        one warming up (``own``: it has a graph there itself) holds it."""
+        if self.programs - own <= 0:
+            yield
+            return
+        torch.cuda.synchronize(device)
+        torch._C._cuda_beginAllocateCurrentThreadToPool(device.index,
+                                                        self.handle)
+        try:
+            with torch.autograd.set_multithreading_enabled(False):
+                yield
+        finally:
+            torch._C._cuda_endAllocateToPool(device.index, self.handle)
+            torch._C._cuda_releasePool(device.index, self.handle)
+
+
 def _copy(dst, src):
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
@@ -366,9 +415,11 @@ class Program:
     and captures it; a failed capture raises); on the CPU, the body
     itself.  Kernel launch counts (``kernels/build.CudaKernel.launches``)
     follow the device: a capture's counts are taken back, and every replay
-    adds the launches its graph holds (``per_replay``).  A program holds
-    no reference to its strategy, so dropping the strategy frees the
-    graphs' memory pools at once.
+    adds the launches its graph holds (``per_replay``).  ``calls`` counts
+    each body's runs (replays on the card) and ``capture_s`` each
+    capture's host seconds, warm-up included (``obs.profile.
+    graph_cost``).  A program holds no reference to its strategy, so
+    dropping the strategy frees the graphs' memory pools at once.
     """
 
     bodies: tuple = ("step",)
@@ -376,12 +427,17 @@ class Program:
     #: programs that never replay at once may share one
     #: (``torch.cuda.graph_pool_handle()``), as the serving scorer's do
     pool = None
+    #: a ``GraphPool`` shared with the other programs of a strategy (its
+    #: pool and stream for warm-ups and captures), or None
+    share = None
 
     def __init__(self, device: torch.device):
         self.device = device
         self.graphs: dict = {}
         self._launch_deltas: dict = {}  # body -> [(kernel, launches)]
         self._tables: dict = {}         # body -> its graph's GraphTables
+        self.calls: dict = {}           # body -> runs (replays on the card)
+        self.capture_s: dict = {}       # body -> warm-up + capture seconds
         self.t = torch.zeros((1,), dtype=torch.int64, device=device)
 
     @property
@@ -399,12 +455,16 @@ class Program:
         raise NotImplementedError
 
     def __call__(self, name: str) -> None:
+        self.calls[name] = self.calls.get(name, 0) + 1
         if self.device.type != "cuda":
             getattr(self, "_" + name)()
             return
         graph = self.graphs.get(name)
         if graph is None:
+            t0 = time.perf_counter()
             graph = self._capture(name)
+            torch.cuda.synchronize(self.device)
+            self.capture_s[name] = time.perf_counter() - t0
         graph.replay()
         for kernel, n in self._launch_deltas[name]:
             kernel.launches += n
@@ -412,11 +472,14 @@ class Program:
     def _capture(self, name: str):
         body, carry = getattr(self, "_" + name), self.carry()
         saved = [t.clone() for t in carry]
+        share = self.share
         main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = share.stream if share else torch.cuda.Stream(self.device)
         side.wait_stream(main)
         tables = B.GraphTables()
-        with torch.cuda.stream(side), tables:
+        with torch.cuda.stream(side), tables, (
+                share.warm_up(self.device, bool(self.graphs)) if share
+                else contextlib.nullcontext()):
             body()
         main.wait_stream(side)
         for t, v in zip(carry, saved):
@@ -434,11 +497,16 @@ class Program:
         graph = torch.cuda.CUDAGraph()
         tables.reserve(self.device)
         try:
-            with torch.cuda.graph(graph, pool=self.pool), tables:
+            with torch.cuda.graph(graph, pool=share.handle if share
+                                  else self.pool,
+                                  stream=share.stream if share else None), \
+                    tables:
                 body()
         finally:
             if collecting:
                 gc.enable()
+        if share and not self.graphs:
+            share.programs += 1
         tables.fill()
         self._tables[name] = tables
         deltas = [(k, k.launches - n) for k, n in zip(kernels, before)
@@ -455,11 +523,20 @@ class _PackedProgram(Program):
     ``[C, NB]`` grid flattened to ``C * NB`` rows), remainder weights, the
     step table (on the device, and its host copy ``rows``), the losses of
     one epoch, the noise buffers of a private step (``draws``) and the
-    strategy's step function (``step_fn``)."""
+    strategy's step function (``step_fn``).
 
-    def __init__(self, strategy, packed: PackedEpoch, table, loss_shape):
+    An observed program (``telemetry``, an ``obs.Telemetry``) steps the
+    strategy's observed step function and writes each step's metric taps
+    into ``metrics``, one buffer per key of the spec's step keys, shaped
+    as the losses; the host reads them once, with the losses, at the end
+    of the run.  All of a strategy's programs warm up and capture in its
+    one ``GraphPool`` (``Strategy._graph_pool``)."""
+
+    def __init__(self, strategy, packed: PackedEpoch, table, loss_shape,
+                 telemetry=None, n_slots=None):
         super().__init__(strategy.device)
-        self.step_fn = strategy._step
+        self.share = strategy._graph_pool()
+        self.step_fn = strategy._observed_step(telemetry, n_slots)
         dev = self.device
         keys = strategy.adapter.batch_keys or tuple(packed.batches)
         self.batches = {
@@ -475,6 +552,8 @@ class _PackedProgram(Program):
         self.table = torch.from_numpy(self.rows).to(dev)
         self.n_steps = len(table)
         self.losses = torch.zeros(loss_shape, device=dev)
+        self.metrics = {k: torch.zeros(loss_shape, device=dev)
+                        for k in strategy._metric_keys(telemetry)}
         self.draws = None
 
     def batch(self, idx):
@@ -504,6 +583,21 @@ class _PackedProgram(Program):
         for name, v in buffers.items():
             getattr(self, name).copy_(torch.from_numpy(np.asarray(v)))
 
+    def record(self, loss, met=None) -> None:
+        """Write the step's loss (and metric taps) at row ``t`` of their
+        buffers and advance ``t``: device index copies, no host read."""
+        self.losses.index_copy_(0, self.t, loss.reshape(
+            1, *self.losses.shape[1:]))
+        for k, v in (met or {}).items():
+            self.metrics[k].index_copy_(0, self.t, v.reshape(
+                1, *self.losses.shape[1:]))
+        self.t.add_(1)
+
+    def round_metrics(self) -> dict:
+        """Per-round taps the round body (or the host round) writes, each
+        copied out once an epoch (FL's update cosine)."""
+        return {}
+
     def fill_draws(self, draws) -> None:
         """Copy one step's noise into the noise buffers: the first step's
         draws become the buffers, which every capture and replay reads."""
@@ -526,9 +620,14 @@ class _PackedProgram(Program):
         (a masked FL cell) draws nothing.  Each epoch ends in the round
         body, if the program has one, then ``end_round()``, if given.
         Returns the ``[E, *loss_shape]`` device losses (past a round's
-        ``n_steps``, what an earlier round left)."""
+        ``n_steps``, what an earlier round left) and the observed metrics
+        stacked the same way, ``{key: [E, ...]}`` (empty unobserved),
+        per-round taps included; the caller reads them back once
+        (``to_host``)."""
         n_epochs = next(iter(batches.values())).shape[0]
         out = torch.empty((n_epochs, *self.losses.shape), device=self.device)
+        met = {k: torch.empty((n_epochs, *v.shape), device=self.device)
+               for k, v in {**self.metrics, **self.round_metrics()}.items()}
         for e in range(n_epochs):
             for k, buf in self.batches.items():
                 buf.copy_(torch.from_numpy(np.ascontiguousarray(
@@ -545,34 +644,39 @@ class _PackedProgram(Program):
                     self.fill_draws(draw(i, self.rows[s]))
                 self("step")
             out[e].copy_(self.losses)
+            for k, v in self.metrics.items():
+                met[k][e].copy_(v)
             if "round" in self.bodies:
                 self("round")
             if end_round is not None:
                 end_round()
-        return out
+            for k, v in self.round_metrics().items():
+                met[k][e].copy_(v)
+        return out, met
 
 
 class SeqProgram(_PackedProgram):
     """Centralized: one pooled hospital, persistent params and Adam state
     (``{"params", "opt"}``); one step per batch of the pooled epoch."""
 
-    def __init__(self, strategy, packed: PackedEpoch, state):
+    def __init__(self, strategy, packed: PackedEpoch, state,
+                 telemetry=None):
         nb = packed.n_batches[0]
-        super().__init__(strategy, packed, np.arange(nb)[:, None], (nb,))
+        super().__init__(strategy, packed, np.arange(nb)[:, None], (nb,),
+                         telemetry)
         self.params = _clone(state["params"])
         self.opt = _clone(state["opt"])
 
     def _step(self):
         batch, w = self.batch(self.row()[0:1])
-        p, s, loss = self.step_fn(self.params, self.opt, batch, w,
-                                  self.draws)
+        p, s, loss, *met = self.step_fn(self.params, self.opt, batch, w,
+                                        self.draws)
         _copy(self.params, p)
         _copy(self.opt, s)
-        self.losses.index_copy_(0, self.t, loss.reshape(1))
-        self.t.add_(1)
+        self.record(loss, *met)
 
     def carry(self):
-        return [self.t, self.losses,
+        return [self.t, self.losses, *self.metrics.values(),
                 *tree_leaves([self.params, self.opt])]
 
     def load(self, state):
@@ -601,15 +705,22 @@ class FLProgram(_PackedProgram):
     replaces the global params by the strategy's ``Aggregator`` of them
     under the round's device buffers ``agg_w`` (the data sizes),
     ``staleness`` and ``slot_gid``.  ``in_graph_round=False`` (secure
-    aggregation) does the round on the host instead (``host_round``)."""
+    aggregation) does the round on the host instead (``host_round``).
+    Observed under ``update_cosine``, the round (either) writes each
+    slot's update cosine (``obs.telemetry.update_cosine`` of the locals,
+    the old global and the aggregate) into ``cos`` before the global
+    params are overwritten."""
 
     bodies = ("step", "round")
 
     def __init__(self, strategy, packed: PackedEpoch, state,
-                 in_graph_round: bool = True):
+                 in_graph_round: bool = True, telemetry=None):
         C, NB = packed.mask.shape
         super().__init__(strategy, packed, fl_rows(packed.mask, range(C)),
-                         (C * NB,))
+                         (C * NB,), telemetry)
+        self.cos = (torch.zeros((C,), device=self.device)
+                    if telemetry is not None and telemetry.update_cosine
+                    else None)
         if not in_graph_round:
             self.bodies = ("step",)
         opt, dev = strategy._opt, self.device
@@ -631,18 +742,25 @@ class FLProgram(_PackedProgram):
         first, valid = row[3].bool(), row[2].bool()
         p_in = tree_select(first, self.glob, self.local)
         s_in = tree_select(first, self.fresh, self.local_opt)
-        p, s, loss = self.step_fn(p_in, s_in, batch, w, self.draws)
+        p, s, loss, *met = self.step_fn(p_in, s_in, batch, w, self.draws)
         p = tree_select(valid, p, p_in)
         _copy(self.local, p)
         _copy(self.local_opt, tree_select(valid, s, s_in))
         tree_put(self.locals, row[4:5], p)
-        self.losses.index_copy_(0, self.t, loss.reshape(1))
-        self.t.add_(1)
+        self.record(loss, *met)
 
     def _round(self):
-        _copy(self.glob, self.agg.aggregate(self.locals, self.agg_w,
-                                            self.glob, self.staleness,
-                                            self.slot_gid))
+        new = self.agg.aggregate(self.locals, self.agg_w, self.glob,
+                                 self.staleness, self.slot_gid)
+        self._observe_round(new)
+        _copy(self.glob, new)
+
+    def _observe_round(self, new) -> None:
+        if self.cos is not None:
+            self.cos.copy_(update_cosine(self.locals, self.glob, new))
+
+    def round_metrics(self) -> dict:
+        return {} if self.cos is None else {"update_cosine": self.cos}
 
     def load_round(self, rows, ex_w=None, **buffers) -> None:
         super().load_round(rows, ex_w, **buffers)
@@ -655,11 +773,14 @@ class FLProgram(_PackedProgram):
         slots' unstacked locals."""
         locals_ = [tree_map(lambda x, c=c: x[c], self.locals)
                    for c in range(len(self.weights))]
-        _copy(self.glob, aggregate(locals_, self.weights, prev=self.glob))
+        new = aggregate(locals_, self.weights, prev=self.glob)
+        self._observe_round(new)
+        _copy(self.glob, new)
 
     def carry(self):
-        return [self.t, self.losses, *tree_leaves(
-            [self.glob, self.local, self.local_opt, self.locals])]
+        return [self.t, self.losses, *self.metrics.values(),
+                *self.round_metrics().values(), *tree_leaves(
+                    [self.glob, self.local, self.local_opt, self.locals])]
 
     def load(self, state):
         _copy(self.glob, state["params"])
@@ -688,9 +809,9 @@ class InterleavedProgram(_PackedProgram):
     longest a round can be, the full-N schedule's length."""
 
     def __init__(self, strategy, packed: PackedEpoch, state, capacity: int,
-                 sync: bool):
+                 sync: bool, telemetry=None):
         super().__init__(strategy, packed, np.zeros((capacity, 2)),
-                         (capacity,))
+                         (capacity,), telemetry)
         if sync:
             self.bodies = ("step", "round")
         self.slot_gid = torch.zeros((packed.mask.shape[0],),
@@ -704,15 +825,14 @@ class InterleavedProgram(_PackedProgram):
         row = self.row()
         batch, w = self.batch(row[0:1])
         c = row[1:2]
-        cp, sp, co, so, loss = self.step_fn(
+        cp, sp, co, so, loss, *met = self.step_fn(
             tree_take(self.clients, c), self.server,
             tree_take(self.c_opts, c), self.s_opt, batch, w, self.draws)
         tree_put(self.clients, c, cp)
         tree_put(self.c_opts, c, co)
         _copy(self.server, sp)
         _copy(self.s_opt, so)
-        self.losses.index_copy_(0, self.t, loss.reshape(1))
-        self.t.add_(1)
+        self.record(loss, *met)
 
     def _round(self):
         rows = tree_map(lambda x: x.index_select(0, self.slot_gid),
@@ -721,7 +841,7 @@ class InterleavedProgram(_PackedProgram):
                  stacked_mean_sync(rows))
 
     def carry(self):
-        return [self.t, self.losses, *tree_leaves(
+        return [self.t, self.losses, *self.metrics.values(), *tree_leaves(
             [self.clients, self.c_opts, self.server, self.s_opt])]
 
     def load(self, state):
@@ -771,13 +891,11 @@ class SyncProgram(_PackedProgram):
     bodies = ("begin", "step", "round")
 
     def __init__(self, strategy, packed: PackedEpoch, state, sync: bool,
-                 capacity: int):
+                 capacity: int, telemetry=None):
         S = packed.mask.shape[0]
         super().__init__(strategy, packed, np.zeros((capacity, S)),
-                         (capacity, S))
+                         (capacity, S), telemetry, S)
         self.n_slots, self.sync = S, sync
-        if S != strategy.n_clients:
-            self.step_fn = strategy._slot_step
         self.slot_gid = torch.zeros((S,), dtype=torch.int64,
                                     device=self.device)
         self.all_clients = stack_trees(state["clients"])
@@ -798,15 +916,14 @@ class SyncProgram(_PackedProgram):
     def _step(self):
         row = self.row()
         batches = [self.batch(row[c:c + 1])[0] for c in range(self.n_slots)]
-        clients, server, c_opts, s_opt, losses = self.step_fn(
+        clients, server, c_opts, s_opt, losses, *met = self.step_fn(
             self.clients, self.server, self.c_opts, self.s_opt, batches,
             self.draws)
         _copy(self.clients, clients)
         _copy(self.c_opts, c_opts)
         _copy(self.server, server)
         _copy(self.s_opt, s_opt)
-        self.losses.index_copy_(0, self.t, losses.reshape(1, -1))
-        self.t.add_(1)
+        self.record(losses, *met)
 
     def _round(self):
         for j, (cp, co) in enumerate(zip(self.clients, self.c_opts)):
@@ -819,7 +936,7 @@ class SyncProgram(_PackedProgram):
                      tree_mean(self.clients))
 
     def carry(self):
-        return [self.t, self.losses, *tree_leaves(
+        return [self.t, self.losses, *self.metrics.values(), *tree_leaves(
             [self.clients, self.c_opts, self.server, self.s_opt,
              self.all_clients, self.all_c_opts, self.count])]
 
@@ -843,19 +960,37 @@ class SyncProgram(_PackedProgram):
 
 def program_for(strategy, kind, packed, build):
     """The strategy's program of this packed layout (a ``PackedEpoch``, or
-    a ``ParticipationPack``), built by ``build()`` the first time (one
-    capture per program body, none per round, epoch or run)."""
+    a ``ParticipationPack``) under its active telemetry spec, built by
+    ``build(telemetry)`` the first time (one capture per program body,
+    none per round, epoch or run).  Observed programs are cached apart
+    from the unobserved ones, keyed on the spec, so observing never evicts
+    or recaptures an unobserved program's graphs."""
     keys = strategy.adapter.batch_keys or tuple(s[0] for s in packed.shapes)
-    key = (kind, layout_key(packed, keys))
+    tel = strategy._tel
+    key = (kind, layout_key(packed, keys)) + ((tel,) if tel else ())
     prog = strategy._programs.get(key)
     if prog is None:
-        prog = strategy._programs[key] = build()
+        prog = strategy._programs[key] = build(tel)
     return prog
+
+
+def to_host(losses, metrics: dict):
+    """A run's device losses and metrics -> numpy, in ONE device-to-host
+    copy (the run's one readback)."""
+    if not metrics:
+        return losses.cpu().numpy(), {}
+    parts = [losses, *metrics.values()]
+    flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+    out, off = [], 0
+    for p in parts:
+        out.append(flat[off:off + p.numel()].reshape(p.shape))
+        off += p.numel()
+    return out[0], dict(zip(metrics, out[1:]))
 
 
 __all__ = ["PackedEpoch", "pack_epoch", "pack_run", "empty_run",
            "ParticipationPack", "pack_participation_run",
            "client_major_log", "scheduled_log",
-           "Program", "SeqProgram", "FLProgram", "InterleavedProgram",
-           "SyncProgram", "fl_rows", "interleaved_rows", "sync_rows",
-           "program_for"]
+           "GraphPool", "Program", "SeqProgram", "FLProgram",
+           "InterleavedProgram", "SyncProgram", "fl_rows",
+           "interleaved_rows", "sync_rows", "program_for", "to_host"]

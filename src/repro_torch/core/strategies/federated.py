@@ -32,6 +32,8 @@ from repro_torch.core.aggregate import SecAggregator, make_aggregator
 from repro_torch.core.strategies import engine as ENG
 from repro_torch.core.strategies.base import (EpochLog, Strategy,
                                               full_step_fn, np_batches)
+from repro_torch.obs import telemetry as T
+from repro_torch.tree import stack_trees
 
 
 class FedAvg(Strategy):
@@ -43,7 +45,7 @@ class FedAvg(Strategy):
         make_aggregator``), the data-size-weighted mean when None."""
         super().__init__(*args, **kw)
         self._opt = self.opt_factory()
-        self._step = full_step_fn(self.adapter, self._opt, self.privacy)
+        self._step = self._make_step()
         if self.privacy is not None and self.privacy.secagg:
             if aggregator is not None:
                 raise ValueError("aggregator= cannot be combined with "
@@ -59,13 +61,20 @@ class FedAvg(Strategy):
         else:
             self._agg = make_aggregator(aggregator)
 
+    def _make_step(self, telemetry=None, n_slots=None):
+        return full_step_fn(self.adapter, self._opt, self.privacy,
+                            telemetry)
+
     def setup(self, seed=0):
         """One global model from ``torch.Generator(seed)`` on the CPU."""
         return {"params": self.adapter.init(
             torch.Generator().manual_seed(int(seed)), self.device)}
 
     def _run_epoch_stepwise(self, state, client_data, rng, batch_size):
+        tel = self._tel
+        step = self._observed_step(tel)
         locals_, weights, losses, loss_w, client_steps = [], [], [], [], []
+        mets = []
         for c, data in enumerate(client_data):
             p = state["params"]                    # start from global
             opt_state = self._opt.init(p)          # fresh optimizer per round
@@ -76,21 +85,36 @@ class FedAvg(Strategy):
                 draws = (self._draws(self._next_step(), c, batch,
                                      batch_size, p)
                          if self._keyed else None)
-                p, opt_state, loss = self._step(p, opt_state,
+                p, opt_state, loss, *met = step(p, opt_state,
                                                 self.to_device(batch),
                                                 draws=draws)
+                self._count_dispatch()
                 losses.append(loss)
+                mets += met
                 loss_w.append(len(batch["label"]))
                 steps += 1
                 self._dp_account(c, n, batch_size)
             locals_.append(p)
             weights.append(n)
             client_steps.append(steps)
+        old = state["params"]
         state["params"] = self._agg.aggregate_trees(locals_, weights,
-                                                    prev=state["params"])
+                                                    prev=old)
         losses = torch.stack(losses).cpu().tolist() if losses else []
-        return state, EpochLog(losses, len(losses), weights=loss_w,
-                               client_steps=client_steps)
+        log = EpochLog(losses, len(losses), weights=loss_w,
+                       client_steps=client_steps)
+        if tel is not None:
+            arr, mask = T.pack_client_major(losses, client_steps)
+            metrics = {k: T.pack_client_major(list(v), client_steps)[0][None]
+                       for k, v in self._host_metrics(mets).items()}
+            extra = None
+            if tel.update_cosine:
+                cos = T.update_cosine(stack_trees(locals_), old,
+                                      state["params"])
+                extra = {"update_cosine": cos.cpu().numpy()[None]}
+            log.telemetry = T.rounds_client_major(
+                tel, arr[None], metrics, mask, self.n_clients, extra)[0]
+        return state, log
 
     def _run_compiled(self, state, client_data, rng, batch_size, n_epochs,
                       participation=None):
@@ -102,10 +126,12 @@ class FedAvg(Strategy):
         ``Participation(k=N)`` trains exactly as ``participation=None``."""
         if ENG.empty_run(client_data, batch_size, self.drop_remainder):
             return None
+        tel = self._tel
         part = self._cohort(participation)
-        batches, pack = ENG.pack_participation_run(
-            client_data, batch_size, rng, n_epochs, part,
-            self.drop_remainder)
+        with self._span("pack"):
+            batches, pack = ENG.pack_participation_run(
+                client_data, batch_size, rng, n_epochs, part,
+                self.drop_remainder)
         nbs, S, NB = pack.n_batches, pack.n_slots, pack.nb_max
         T_N = int(sum(nbs))
         prefix = np.concatenate([[0], np.cumsum(nbs)[:-1]]).astype(np.int64)
@@ -120,8 +146,8 @@ class FedAvg(Strategy):
                             + np.arange(nbs[g], dtype=np.int64))
             self._key_step += n_epochs * T_N
         first = pack.epoch(0, batches)
-        prog = ENG.program_for(self, "fl", pack, lambda: ENG.FLProgram(
-            self, first, state, self._agg.scan_compatible))
+        prog = ENG.program_for(self, "fl", pack, lambda t: ENG.FLProgram(
+            self, first, state, self._agg.scan_compatible, t))
         prog.load(state)
 
         def begin_round(e):
@@ -130,9 +156,13 @@ class FedAvg(Strategy):
                             else pack.ex_weights[e], agg_w=pack.agg_w[e],
                             staleness=pack.staleness[e],
                             slot_gid=pack.slot_gid[e])
-        losses = prog.run(batches, self._program_draw(first, prog.glob),
-                          key_idx.reshape(n_epochs, -1),
-                          self._end_round(prog), begin_round).cpu().numpy()
+        calls = dict(prog.calls)
+        with self._span("dispatch"):
+            losses, met = ENG.to_host(*prog.run(
+                batches, self._program_draw(first, prog.glob),
+                key_idx.reshape(n_epochs, -1), self._end_round(prog),
+                begin_round))
+        self._dispatch(prog, calls, 1)
         prog.store(state)
         logs = []
         for e in range(n_epochs):
@@ -144,6 +174,21 @@ class FedAvg(Strategy):
                     csteps[g] = nbs[g]
             logs.append(EpochLog(flat, len(flat), weights=loss_w,
                                  client_steps=csteps))
+        if tel is not None:
+            extra = ({"update_cosine": met.pop("update_cosine")}
+                     if "update_cosine" in met else None)
+            grid = (n_epochs, S, NB)
+            losses = losses.reshape(grid)
+            met = {k: v.reshape(grid) for k, v in met.items()}
+            rounds = (T.rounds_client_major(tel, losses, met, pack.mask[0],
+                                            self.n_clients, extra)
+                      if participation is None else
+                      T.rounds_participation(tel, losses, met, pack, extra))
+            for log, r in zip(logs, rounds):
+                log.telemetry = r
+        if participation is not None and part.kind != "schedule":
+            # the would-be step counts the epsilon series composes over
+            self._last_part_nbs = list(nbs)
         # RDP: with sampling randomness EVERY hospital composes EVERY round
         # at the amplified rate (q_round * q_batch) over its would-be step
         # count; a deterministic schedule composes the realized rounds only,

@@ -30,12 +30,14 @@ from repro_torch.core.schedule import SCHEDULES, schedule_array
 from repro_torch.core.strategies import engine as ENG
 from repro_torch.core.strategies.base import (EpochLog, Strategy, np_batches,
                                               split_step_fn)
+from repro_torch.obs import telemetry as T
 
 
 class SplitLearning(Strategy):
     name = "sl"
     #: the epoch ends in the client sync (SFLv2, SFLv1)
     _syncs_clients = False
+    _has_cut = True
 
     def __init__(self, adapter, opt_factory, n_clients, schedule="ac",
                  transport=None, privacy=None, **kw):
@@ -50,12 +52,32 @@ class SplitLearning(Strategy):
                 "the split family supports fixed-size participation only "
                 "(Participation(k=...)): the shared-server schedule needs "
                 "every slot filled")
+        if self.participation is not None and self.observe is not None:
+            raise ValueError("participation with observe is not supported "
+                             "for the split family")
         self._opt_c, self._opt_s = opt_factory(), opt_factory()
         self._step = self._make_step()
 
-    def _make_step(self):
+    def _make_step(self, telemetry=None, n_slots=None):
         return split_step_fn(self.adapter, self._opt_c, self._opt_s,
-                             self.transport, self.privacy)
+                             self.transport, self.privacy, telemetry)
+
+    def _check_observe(self, participation):
+        """The reference's refusal: a participating split-family run is
+        never observed."""
+        if participation is not None and self._tel is not None:
+            raise ValueError("participation with observe is not supported "
+                             "for the split family")
+
+    def _round_telemetry(self, tel, losses, metrics, sched):
+        """Reduce one epoch's schedule-ordered per-step taps."""
+        if not len(sched):
+            return T.RoundTelemetry(0, {})
+        return T.rounds_scheduled(
+            tel, np.asarray(losses, np.float64)[None],
+            {k: np.asarray(v, np.float64)[None]
+             for k, v in metrics.items()},
+            np.asarray(sched), self.n_clients)[0]
 
     def _client_tree(self, params):
         t = {"front": params["front"]}
@@ -79,10 +101,12 @@ class SplitLearning(Strategy):
                 "s_opt": self._opt_s.init(server)}
 
     def _run_epoch_stepwise(self, state, client_data, rng, batch_size):
+        tel = self._tel
+        step = self._observed_step(tel)
         batches = [np_batches(d, batch_size, rng, self.drop_remainder)
                    for d in client_data]
         order = SCHEDULES[self.schedule]([len(b) for b in batches])
-        losses, loss_w = [], []
+        losses, loss_w, mets = [], [], []
         client_steps = [0] * self.n_clients
         for c, b in order:
             host = batches[c][b]
@@ -91,10 +115,12 @@ class SplitLearning(Strategy):
                                   "s": state["server"]})
                      if self._keyed else None)
             (state["clients"][c], state["server"], state["c_opts"][c],
-             state["s_opt"], loss) = self._step(
+             state["s_opt"], loss, *met) = step(
                 state["clients"][c], state["server"], state["c_opts"][c],
                 state["s_opt"], self.to_device(host), draws=draws)
+            self._count_dispatch()
             losses.append(loss)
+            mets += met
             loss_w.append(len(host["label"]))
             client_steps[c] += 1
             self._dp_account(c, len(client_data[c]["label"]), batch_size)
@@ -105,8 +131,12 @@ class SplitLearning(Strategy):
                                     [len(b) for b in batches])
         self._end_of_epoch(state)
         losses = torch.stack(losses).cpu().tolist() if losses else []
-        return state, EpochLog(losses, len(losses), weights=loss_w,
-                               client_steps=client_steps)
+        log = EpochLog(losses, len(losses), weights=loss_w,
+                       client_steps=client_steps)
+        if tel is not None:
+            log.telemetry = self._round_telemetry(
+                tel, losses, self._host_metrics(mets), order)
+        return state, log
 
     def _run_compiled(self, state, client_data, rng, batch_size, n_epochs,
                       participation=None):
@@ -119,10 +149,13 @@ class SplitLearning(Strategy):
         exactly as ``participation=None``."""
         if ENG.empty_run(client_data, batch_size, self.drop_remainder):
             return None
+        self._check_observe(participation)
+        tel = self._tel
         part = self._cohort(participation)
-        batches, pack = ENG.pack_participation_run(
-            client_data, batch_size, rng, n_epochs, part,
-            self.drop_remainder)
+        with self._span("pack"):
+            batches, pack = ENG.pack_participation_run(
+                client_data, batch_size, rng, n_epochs, part,
+                self.drop_remainder)
         nbs = pack.n_batches
         full = schedule_array(self.schedule, nbs)
         S_N = len(full)
@@ -143,8 +176,8 @@ class SplitLearning(Strategy):
             self._key_step += n_epochs * S_N
         first = pack.epoch(0, batches)
         prog = ENG.program_for(
-            self, "interleaved", pack, lambda: ENG.InterleavedProgram(
-                self, first, state, S_N, self._syncs_clients))
+            self, "interleaved", pack, lambda t: ENG.InterleavedProgram(
+                self, first, state, S_N, self._syncs_clients, t))
         prog.load(state)
 
         def begin_round(e):
@@ -155,8 +188,11 @@ class SplitLearning(Strategy):
                 slot_gid=pack.slot_gid[e])
         draw = self._program_draw(first, {"c": state["clients"][0],
                                           "s": state["server"]})
-        losses = prog.run(batches, draw, key_idx, None,
-                          begin_round).cpu().numpy()
+        calls = dict(prog.calls)
+        with self._span("dispatch"):
+            losses, met = ENG.to_host(*prog.run(batches, draw, key_idx, None,
+                                                begin_round))
+        self._dispatch(prog, calls, 1)
         prog.store(state)
         logs = []
         for e, rows in enumerate(rounds):
@@ -169,6 +205,11 @@ class SplitLearning(Strategy):
                 csteps[gid[s]] += 1
             logs.append(EpochLog(flat, len(rows), weights=loss_w,
                                  client_steps=csteps))
+            if tel is not None:
+                logs[-1].telemetry = self._round_telemetry(
+                    tel, losses[e, :len(rows)],
+                    {k: v[e, :len(rows)] for k, v in met.items()},
+                    [(gid[s], b) for s, b, _p in rows])
         # amplified RDP: every hospital composes every round at rate K/N
         # over the steps it runs when sampled
         for g in range(pack.n_global):

@@ -35,6 +35,7 @@ from repro_torch.core.strategies import engine as ENG
 from repro_torch.core.strategies.base import (EpochLog, np_batches,
                                               sflv3_step_fn)
 from repro_torch.core.strategies.split import SplitLearning
+from repro_torch.obs import telemetry as T
 from repro_torch.privacy.dpsgd import step_draws
 
 
@@ -71,16 +72,23 @@ class SplitFedV3(SplitLearning):
                 "same-shaped batch each step, so drop_remainder=False is "
                 "not representable; use drop_remainder=True")
         self.name = f"sflv3_{schedule}"
-        if (self.participation is not None
-                and self.participation.n_slots != n_clients):
-            # the K-wide step of a participating run
-            self._slot_step = sflv3_step_fn(
-                self.adapter, self._opt_c, self._opt_s,
-                self.participation.n_slots, self.transport, self.privacy)
 
-    def _make_step(self):
+    def _make_step(self, telemetry=None, n_slots=None):
+        """The batch-synchronous step over ``n_slots`` hospitals (a
+        participating run's K; None: every hospital)."""
         return sflv3_step_fn(self.adapter, self._opt_c, self._opt_s,
-                             self.n_clients, self.transport, self.privacy)
+                             n_slots or self.n_clients, self.transport,
+                             self.privacy, telemetry)
+
+    def _sync_round_telemetry(self, tel, losses, metrics):
+        """Reduce one epoch's ``[S, C]`` synchronous-step taps."""
+        losses = np.asarray(losses, np.float64)
+        if not losses.size:
+            return T.RoundTelemetry(0, {})
+        return T.rounds_sync(
+            tel, losses[None],
+            {k: np.asarray(v, np.float64)[None]
+             for k, v in metrics.items()}, self.n_clients)[0]
 
     def _step_draws(self, step: int, clients, server, batch,
                     hospitals=None) -> list:
@@ -105,10 +113,12 @@ class SplitFedV3(SplitLearning):
                 "client")
 
     def _run_epoch_stepwise(self, state, client_data, rng, batch_size):
+        tel = self._tel
+        step = self._observed_step(tel)
         batches = [np_batches(d, batch_size, rng) for d in client_data]
         self._check_batches([len(b) for b in batches], batch_size)
         steps = max(len(b) for b in batches)
-        step_losses = []
+        step_losses, mets = [], []
         for s in range(steps):
             # clients that exhausted their data wrap around
             host = [batches[c][s % len(batches[c])]
@@ -117,10 +127,12 @@ class SplitFedV3(SplitLearning):
                                       state["server"], host[0])
                      if self._keyed else None)
             (state["clients"], state["server"], state["c_opts"],
-             state["s_opt"], losses) = self._step(
+             state["s_opt"], losses, *met) = step(
                 state["clients"], state["server"], state["c_opts"],
                 state["s_opt"], [self.to_device(b) for b in host], draws)
+            self._count_dispatch()
             step_losses.append(losses)
+            mets += met
             for c in range(self.n_clients):
                 # wrap-around resampling included: every client is touched
                 self._dp_account(c, len(client_data[c]["label"]),
@@ -130,10 +142,13 @@ class SplitFedV3(SplitLearning):
                     self.transport.account(self.adapter, b)
         self._record_wire_epoch(batches[0][0], [len(b) for b in batches])
         self._end_of_epoch(state)
-        losses = (torch.stack(step_losses).reshape(-1).cpu().tolist()
-                  if step_losses else [])
-        return state, EpochLog(losses, steps,
-                               client_steps=[steps] * self.n_clients)
+        rows = torch.stack(step_losses).cpu().numpy()
+        log = EpochLog(rows.reshape(-1).tolist(), steps,
+                       client_steps=[steps] * self.n_clients)
+        if tel is not None:
+            log.telemetry = self._sync_round_telemetry(
+                tel, rows, self._host_metrics(mets))
+        return state, log
 
     def _run_compiled(self, state, client_data, rng, batch_size, n_epochs,
                       participation=None):
@@ -147,9 +162,12 @@ class SplitFedV3(SplitLearning):
         ``participation=None``.  Every hospital composes every round at
         the amplified rate over ``NB_N`` steps (the reference's bound,
         conservative when a cohort runs fewer)."""
+        self._check_observe(participation)
+        tel = self._tel
         part = self._cohort(participation)
-        batches, pack = ENG.pack_participation_run(
-            client_data, batch_size, rng, n_epochs, part, True)
+        with self._span("pack"):
+            batches, pack = ENG.pack_participation_run(
+                client_data, batch_size, rng, n_epochs, part, True)
         nbs = pack.n_batches
         self._check_batches(nbs, batch_size)
         NB_N = pack.nb_max
@@ -162,8 +180,8 @@ class SplitFedV3(SplitLearning):
                                         + np.arange(real[e]))
             self._key_step += n_epochs * NB_N
         first = pack.epoch(0, batches)
-        prog = ENG.program_for(self, "sync", pack, lambda: ENG.SyncProgram(
-            self, first, state, self._syncs_clients, NB_N))
+        prog = ENG.program_for(self, "sync", pack, lambda t: ENG.SyncProgram(
+            self, first, state, self._syncs_clients, NB_N, t))
         prog.load(state)
         gids = []
 
@@ -178,8 +196,11 @@ class SplitFedV3(SplitLearning):
             def draw(i, row):
                 return self._step_draws(i, prog.clients, prog.server,
                                         example, gids)
-        losses = prog.run(batches, draw, key_idx, None,
-                          begin_round).cpu().numpy()
+        calls = dict(prog.calls)
+        with self._span("dispatch"):
+            losses, met = ENG.to_host(*prog.run(batches, draw, key_idx, None,
+                                                begin_round))
+        self._dispatch(prog, calls, pack.n_slots)
         prog.store(state)
         logs = []
         for e in range(n_epochs):
@@ -188,6 +209,10 @@ class SplitFedV3(SplitLearning):
                 losses[e, :real[e]].reshape(-1).tolist(), real[e],
                 client_steps=[real[e] if g in sampled else 0
                               for g in range(pack.n_global)]))
+            if tel is not None:
+                logs[-1].telemetry = self._sync_round_telemetry(
+                    tel, losses[e, :real[e]],
+                    {k: v[e, :real[e]] for k, v in met.items()})
         for g in range(pack.n_global):
             self._dp_account(g, pack.n_samples[g], batch_size,
                              count=NB_N * n_epochs, q_scale=part.rate)

@@ -5,7 +5,12 @@ host wall-clock, its wire lane the simulator's simulated time).
 Clock domains, each on its own ``pid`` lane:
 
   * **engine host** (``PID_ENGINE``): real wall-clock spans recorded by
-    ``Tracer`` around host phases;
+    ``Tracer`` around the strategy's host phases (run -> pack -> dispatch;
+    ``round i`` on the per-epoch path).  A compiled run replays every
+    round inside one ``dispatch`` span, so ``round_events`` subdivides it
+    into equal per-round slices (flagged ``synthetic``) that carry the
+    per-round telemetry as args and the cumulative RDP epsilon as Chrome
+    counter (ph "C") tracks;
   * **wire** (``PID_WIRE``): the *simulated*-time transfer timelines from
     ``wire.simulator`` (``simulate`` or ``timeline_from_accounting``) —
     per-client tracks of upload/download events with tag + byte args.
@@ -15,9 +20,7 @@ Clock domains, each on its own ``pid`` lane:
     queue waits and per-batch pad / dispatch / readback spans.
 
 ``write_chrome_trace`` emits the standard ``{"traceEvents": [...]}`` JSON
-that chrome://tracing and https://ui.perfetto.dev load directly.  The
-per-round telemetry lane (the reference's ``round_events``) comes with the
-port's telemetry.
+that chrome://tracing and https://ui.perfetto.dev load directly.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from __future__ import annotations
 import contextlib
 import json
 import time
+
+import numpy as np
 
 PID_ENGINE = 1
 PID_WIRE = 2
@@ -42,7 +47,9 @@ def _meta(pid, name, tid=None, tname=None):
 
 class Tracer:
     """Host-side span tree: nested ``with tracer.span(name):`` blocks
-    become Chrome complete ("X") events on one engine-host track."""
+    become Chrome complete ("X") events on one engine-host track.  A
+    strategy given to ``Strategy.attach_tracer`` records its run / pack /
+    dispatch phases here."""
 
     def __init__(self, pid: int = PID_ENGINE, tid: int = 1):
         self.pid, self.tid = pid, tid
@@ -96,6 +103,45 @@ class Tracer:
             + list(self.events)
 
 
+def round_events(run_telemetry, dispatch_span=None, pid: int = PID_ENGINE,
+                 tid: int = 2) -> list:
+    """Per-round telemetry as trace events.
+
+    The compiled run gives the host no per-round timing — every round is
+    replayed inside one dispatch span — so rounds are laid out as equal
+    slices of the dispatch span (or of a unit span when no tracer ran),
+    flagged ``"synthetic": True``.  Each slice carries the round's
+    hospital-mean metrics as args; the cumulative per-hospital RDP
+    epsilon becomes counter ("C") tracks stepping at round boundaries.
+    """
+    rounds = run_telemetry.rounds
+    if not rounds:
+        return []
+    if dispatch_span is not None:
+        t0, dur = dispatch_span["ts"], dispatch_span["dur"]
+    else:
+        t0, dur = 0.0, float(len(rounds)) * 1e6
+    slice_us = dur / len(rounds)
+    out = _meta(pid, "engine host", tid,
+                f"rounds ({run_telemetry.strategy}, synthetic)")
+    for i, r in enumerate(rounds):
+        args = {"synthetic": True}
+        for k, v in r.scalars().items():
+            if np.isfinite(v):
+                args[k] = round(float(v), 6)
+        out.append({"name": f"round {r.round_index}", "ph": "X",
+                    "ts": t0 + i * slice_us, "dur": slice_us,
+                    "pid": pid, "tid": tid, "args": args})
+        if r.epsilon is not None:
+            eps = np.asarray(r.epsilon, np.float64)
+            out.append({"name": f"epsilon ({run_telemetry.strategy})",
+                        "ph": "C", "ts": t0 + (i + 1) * slice_us,
+                        "pid": pid,
+                        "args": {f"hospital{c}": round(float(eps[c]), 6)
+                                 for c in range(eps.shape[0])}})
+    return out
+
+
 def wire_events(sim_result, pid: int = PID_WIRE, label: str = "") -> list:
     """``wire.simulator.SimResult`` transfer events as per-client trace
     tracks (simulated seconds -> trace microseconds)."""
@@ -138,5 +184,5 @@ def write_chrome_trace(events: list, path) -> str:
     return path
 
 
-__all__ = ["Tracer", "wire_events", "merge_events",
+__all__ = ["Tracer", "round_events", "wire_events", "merge_events",
            "write_chrome_trace", "PID_ENGINE", "PID_WIRE", "PID_SERVING"]

@@ -124,7 +124,7 @@ def make_generator(cfg: PrivacyConfig, step: int, hospital: int,
 # DP-SGD
 # ---------------------------------------------------------------------------
 
-def per_example_grads(loss_fn, params, batch, extra=None):
+def per_example_grads(loss_fn, params, batch, extra=None, has_aux=False):
     """vmapped (loss, grad) over singleton sub-batches.
 
     ``loss_fn(params, batch, extra) -> scalar`` must be a per-batch MEAN, so
@@ -135,13 +135,20 @@ def per_example_grads(loss_fn, params, batch, extra=None):
     its own per-example batch and takes no ``vmap``: PyTorch's vmapped
     ``group_norm`` refuses a channels-last input when the vmapped size is
     one.
+
+    With ``has_aux`` the loss_fn returns ``(loss, aux)``, ``aux`` a tree of
+    0-d tensors (the telemetry taps' per-example payload moments), and the
+    result is ``((losses, aux stacked to (B,) each), grads)``; the gradient
+    computation is the same.
     """
     def one(b, e):
-        g, v = torch.func.grad_and_value(loss_fn)(params, b, e)
+        g, v = torch.func.grad_and_value(loss_fn, has_aux=has_aux)(
+            params, b, e)
         return v, g
     if len(tree_leaves(batch)[0]) == 1:
         v, g = one(batch, extra)
-        return v.reshape(1), tree_map(lambda t: t.unsqueeze(0), g)
+        v = tree_map(lambda t: t.reshape(1), v)
+        return v, tree_map(lambda t: t.unsqueeze(0), g)
     single = lambda t: t.unsqueeze(1)                       # noqa: E731
     extra = None if extra is None else tree_map(single, extra)
     return torch.func.vmap(one, in_dims=(0, None if extra is None else 0))(
@@ -156,7 +163,8 @@ def dp_noise_std(cfg: PrivacyConfig) -> float:
             if cfg.noise_multiplier > 0 else 0.0)
 
 
-def dp_value_and_grad(loss_fn, cfg: PrivacyConfig):
+def dp_value_and_grad(loss_fn, cfg: PrivacyConfig, has_aux=False,
+                      with_norms=False):
     """DP analogue of ``value_and_grad``.
 
     ``loss_fn(params, batch, extra) -> scalar``.  Returns ``fn(params,
@@ -175,11 +183,19 @@ def dp_value_and_grad(loss_fn, cfg: PrivacyConfig):
     loss is the weighted mean.  The clip is K5/K6 (``kernels/dp_clip``) on
     the weighted rows; the reference's ``use_kernel`` switch is not
     ported, since a CUDA tensor always launches the kernels.
+
+    Telemetry hooks (both leave the estimator untouched): ``has_aux``
+    makes loss_fn return ``(loss, aux)``, each example's aux stacked along
+    a leading B axis, and ``with_norms`` exposes the (B,) per-example
+    pre-clip gradient norms K5 returns through ``clip_accumulate``.  With
+    either set, fn returns ``(loss, grad, extras)``, extras holding
+    ``"aux"`` and/or ``"norms"``.
     """
     noise_std = dp_noise_std(cfg)
 
     def fn(params, batch, gen=None, extra=None, noise=None, weights=None):
-        losses, grads = per_example_grads(loss_fn, params, batch, extra)
+        out = per_example_grads(loss_fn, params, batch, extra, has_aux)
+        (losses, aux), grads = out if has_aux else ((out[0], None), out[1])
         b = losses.shape[0]
         if weights is None:
             denom, loss = b, losses.mean()
@@ -189,13 +205,20 @@ def dp_value_and_grad(loss_fn, cfg: PrivacyConfig):
                 lambda g: g * w.reshape((b,) + (1,) * (g.dim() - 1)), grads)
             denom = torch.clamp_min(w.sum(), 1.0)
             loss = (losses * w).sum() / denom
-        summed, _ = clip_accumulate(grads, float(cfg.clip_norm))
+        summed, norms = clip_accumulate(grads, float(cfg.clip_norm))
         if noise is None and noise_std > 0:
             noise = draw_noise(params, gen, noise_std)
         if noise is not None:
             summed = tree_map(lambda s, z: s + z.to(s.dtype), summed, noise)
         grad = tree_map(lambda s, p: (s / denom).to(p.dtype), summed, params)
-        return loss, grad
+        if not (has_aux or with_norms):
+            return loss, grad
+        extras = {}
+        if has_aux:
+            extras["aux"] = aux
+        if with_norms:
+            extras["norms"] = norms
+        return loss, grad, extras
 
     return fn
 

@@ -145,6 +145,7 @@ def test_run_is_the_per_epoch_loop(runs, clients):
         assert all(np.array_equal(fa[k], fb[k]) for k in fa)
     assert st.run(state, [c.train for c in clients],
                   np.random.default_rng(1), BATCH, 0) == (state, [])
-    with pytest.raises(NotImplementedError, match="M10"):
-        st.run(state, [c.train for c in clients], np.random.default_rng(1),
-               BATCH, 1, observe=True)
+    # observe= is ported (M10): an observed run fills the telemetry
+    _, observed = st.run(state, [c.train for c in clients],
+                         np.random.default_rng(1), BATCH, 1, observe=True)
+    assert observed[0].telemetry is st.last_run_telemetry.rounds[0]

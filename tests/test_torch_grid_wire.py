@@ -132,16 +132,18 @@ def test_batch_synchronous_methods_refuse_short_batches(method):
     ("centralized", False, dict(transport=True), ValueError),
     ("fl", False, dict(privacy=dict(cut_noise_std=0.5)), ValueError),
     ("sl_am", False, dict(privacy=dict(secagg=True)), ValueError),
-    # privacy on SFLv2 and under NLS is ported now (M8), and participation
-    # (M9): these three cases keep their ids and check the options that
-    # still raise on those private paths (the split family takes
-    # fixed-size participation only: the reference's ValueError)
+    # privacy on SFLv2 and under NLS is ported now (M8), participation
+    # (M9) and observe= (M10): these three cases keep their ids and check
+    # the options that still raise on those private paths (the split
+    # family takes fixed-size participation only, and is never observed
+    # under participation: the reference's ValueErrors)
     pytest.param("sflv2_ac", False, dict(
         privacy=dict(noise_multiplier=1.0, clip_norm=1.0),
         participation=dict(q=0.5)), ValueError, id="sflv2_ac-False-kw3-M8"),
     pytest.param("sflv3_ac", True, dict(privacy=dict(cut_noise_std=0.5),
-                                        observe=True), "M10",
-                 id="sflv3_ac-True-kw4-M8"),
+                                        observe=True,
+                                        participation=dict(k=2)),
+                 ValueError, id="sflv3_ac-True-kw4-M8"),
     pytest.param("sflv1_ac", True, dict(
         privacy=dict(noise_multiplier=1.0, clip_norm=1.0), shard=True),
         "M11", id="sflv1_ac-True-kw5-M8"),

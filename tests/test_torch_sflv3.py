@@ -251,15 +251,14 @@ def test_port_setup_has_the_reference_layout(runs):
 
 
 # precision="bf16" (M4), engine="compiled" (M6), privacy on the whole grid
-# (M8), participation and the aggregation rules (M9) are ported now: their
-# cases keep their ids and check what holds on those paths (an option that
-# builds, expect None; the reference's ValueError, a message; or an option
-# that still raises, the ROADMAP item it names: observe= under DP with the
-# NLS cut)
+# (M8), participation and the aggregation rules (M9) and observe= (M10)
+# are ported now: their cases keep their ids and check what holds on those
+# paths (an option that builds, expect None; the reference's ValueError, a
+# message; or an option that still raises, the ROADMAP item it names)
 @pytest.mark.parametrize("kw, expect", [
     pytest.param(dict(precision="bf16", method="fl",
                       aggregator="trimmed_mean"), None, id="kw0-M4"),
-    pytest.param(dict(observe=True), "M10", id="kw1-M10"),
+    pytest.param(dict(observe=True), None, id="kw1-M10"),
     pytest.param(dict(shard=True), "M11", id="kw2-M11"),
     pytest.param(dict(participation=dict(q=0.5)),
                  "fixed-size participation only", id="kw3-M9"),
@@ -271,7 +270,7 @@ def test_port_setup_has_the_reference_layout(runs):
                       aggregator="coordinate_median"), None, id="kw5-M8"),
     pytest.param(dict(method="sl_ac", nls=True,
                       privacy=dict(noise_multiplier=1.0, clip_norm=1.0),
-                      observe=True), "M10", id="kw6-M8"),
+                      observe=True), None, id="kw6-M8"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kw, expect):
     from repro_torch.core.participation import Participation
@@ -290,6 +289,7 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, expect):
     if expect is None:
         st = build()
         assert st.participation is kw.get("participation")
+        assert (st.observe is not None) == ("observe" in kw)
         if "aggregator" in kw:
             assert st._agg.name == kw["aggregator"]
     elif expect.startswith("M"):
