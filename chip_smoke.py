@@ -179,16 +179,40 @@ Phases, in order; any failure exits nonzero before the last line:
      lane written as one Chrome trace and read back, ``write_runlog`` /
      ``write_report``, ``torch_profile`` around one observed replay (its
      trace names K3's kernel), ``graph_cost`` and ``cost_summary``;
+ 15. LM training and the model kinds (it also runs before phase 10): K1,
+     K2 and K3 bit-equal to their plain versions on their design's paths
+     (vector at 576, general at 5,120) and timed at the LM links' bf16 rows, 16,384 x 576 and 4,096 x 5,120
+     (``lm_576_bf16``, ``lm_5120_bf16`` in the kernels line); then, the
+     counts at 0: ``chain(clip_by_global_norm, add_noise, adam)`` on the
+     compiled engine against the stepwise one, FL and SFLv3-AC on
+     DenseNet-121 at 224^2, 2 epochs, every loss and param bit-equal; (a)
+     SmolLM-135M SplitFedv3 at published widths and depth (remat, bf16
+     compute, f32 masters), 4 hospitals x 2 sequences of 2048 + 1 tokens,
+     30 steps of ``make_sflv3_train_step(compress=True)`` under
+     ``adam(wsd)``: the first loss in [10.3, 12.3], the mean of the last 5
+     below the first 5's, K1 and K2 once a step, step 1 against the plain
+     link from the same state (losses within 1e-2, params within two of
+     step 1's rates), step ms (CUDA events), tokens/s, peak memory; then 5
+     steps of ``make_plain_train_step``; (b) Llama-4 Scout 17B-16E at
+     published widths, 2 layers cut after the first (one MoE layer a
+     segment), bf16, 2 sequences of 2048 + 1: the scoring forward over
+     K3 against the plain link (``LOGIT_BARS``), ``loss`` with the aux
+     (> 0, ``dropped`` in [0, 1]), ``loss.backward()`` over K1/K2 with
+     every gradient finite, tokens/s and peak; (c) every registry SMOKE
+     config in f32, card against CPU: logits, loss and the params after
+     one Adam step; every full CONFIG through ``param_shapes`` (meta, no
+     card memory) with its param count;
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
      bf16 rows, ``unet_leaf`` entries and ``bare_ms``, K4 with
-     ``one_hospital``; launches of every phase), then the last line
-     ``{"ok": true, "device": {...}}``.
+     ``one_hospital``, K1-K3 with their LM link rows; launches of every
+     phase), then the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  ``--profile`` adds one profiled fused
 step of each main path, of the U-Net's SFLv3 and SL-AM (LS) in phase 8,
 one replayed step of the private SFLv3 and of SL-AM (f32) in phase 9,
-of the private centralized and SL-AC (LS) rows in phase 11, and one
-profiled scoring forward of each LM (``torch.profiler``), and
+of the private centralized and SL-AC (LS) rows in phase 11, one
+profiled scoring forward of each LM and one SmolLM-135M SFLv3 training
+step in phase 15 (``torch.profiler``), and
 prints the device time by kernel and the busy share (the union of the
 kernels' intervals over the wall time).  The script imports nothing of
 JAX or of the JAX package ``repro``.
@@ -1759,7 +1783,8 @@ def engine_run(engine, method, nls, adapter, clients, batch, dev, precision,
 def engine_pair(method, nls, precision, opts, adapter, clients, batch, dev,
                 profile=False):
     """One phase-9 run: the stepwise and the compiled engine from the same
-    start, and their checks.
+    start, and their checks.  ``opts`` may name the run's optimizer
+    (``opt``, a factory, and ``opt_label``; ``adam(1e-4)`` otherwise).
 
     Bar: equal.  Phase 9 runs with ``cudnn.deterministic`` (cuDNN's
     default weight-gradient algorithms add in a run-dependent order), so
@@ -1783,13 +1808,14 @@ def engine_pair(method, nls, precision, opts, adapter, clients, batch, dev,
     privacy = opts.get("privacy")
     label = (f"{method} {'NLS' if nls else 'LS'} {precision}"
              + (" private" if privacy else "")
+             + (f" {opts['opt_label']}" if "opt" in opts else "")
              + ("" if fuse else " unfused") + (f" x{epochs} epochs"
                                                 if epochs > 1 else ""))
     runs = {}
     for engine in ("stepwise", "compiled"):
         runs[engine] = engine_run(engine, method, nls, adapter, clients,
                                   batch, dev, precision, privacy, fuse,
-                                  epochs)
+                                  epochs, opts.get("opt"))
         torch.cuda.empty_cache()
     sw, cp = runs["stepwise"], runs["compiled"]
     strat = cp["strat"]
@@ -3746,6 +3772,517 @@ def profile_call(fn, label, kernel_groups):
             f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: LM training and the model kinds
+# ---------------------------------------------------------------------------
+
+# (a) SmolLM-135M SplitFedv3 at published widths and depth: 4 hospitals x
+# 2 sequences of 2048 + 1 tokens a step, 30 steps of adam under wsd
+TRAIN_HOSPITALS, TRAIN_SEQS = 4, 2
+TRAIN_STEPS, PLAIN_STEPS = 30, 5
+TRAIN_WSD = dict(peak=1e-3, warmup=5, stable=15, decay=10)
+TRAIN_ROWS = TRAIN_HOSPITALS * TRAIN_SEQS * LM_SEQ     # 16,384 cut rows
+# the first loss: ln 49152 = 10.80 plus about 0.5 from the unit-variance
+# logits of the 1/sqrt(d) head
+FIRST_LOSS = (10.3, 12.3)
+# (b) Llama-4 Scout 17B-16E at published widths, 2 layers cut after the
+# first: one hospital of 2 sequences of 2048 + 1 tokens
+SCOUT_LAYERS, SCOUT_CUT, SCOUT_SEQS = 2, 1, 2
+SCOUT_ROWS = SCOUT_SEQS * LM_SEQ                        # 4,096 cut rows
+# the compiled engine under add_noise: chain(clip 1.0, add_noise std, adam)
+NOISE_STD, NOISE_SEED = 1e-3, 7
+# (c) every registry SMOKE config in f32, card against CPU: one forward and
+# one Adam step (eps 1e-3, so the update is Lipschitz in the gradient,
+# lr / eps = 1): logits within 5e-5 of their largest magnitude (phase 4's
+# bar), losses within 1e-5, params within 1e-5
+SMALL_LR, SMALL_EPS = 1e-3, 1e-3
+SMALL_PARAM_BAR = 1e-5
+
+
+def noise_opt():
+    from repro_torch import optim as O
+    return O.chain(O.clip_by_global_norm(1.0),
+                   O.add_noise(NOISE_STD, seed=NOISE_SEED), O.adam(1e-4))
+
+
+def noise_engine_path(dev, clients):
+    """``chain(clip_by_global_norm, add_noise, adam)`` on the compiled
+    engine against the stepwise one (``engine_pair``: every loss and
+    param bit-equal, one capture per body) on FL (1 round: 10 step
+    replays) and SFLv3 (2 epochs: 4) at DenseNet-121 224^2, 2 batches of
+    16 an epoch on the main path's 5 hospitals.  A replay that drew the
+    noise of the capture again would differ from the stepwise engine's
+    fresh draws at the second step.  (The stepwise engine's eager
+    Threefry, some 150 small launches a leaf, makes its FL step about
+    0.8 s longer; a replay pays none of that host time.)"""
+    import torch
+
+    from repro_torch.configs.paper_models import DENSENET121_PAPER
+    from repro_torch.core.partition import cnn_adapter
+    from repro_torch.models.cnn import build_densenet
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for method, epochs in (("fl", 1), ("sflv3_ac", 2)):
+            engine_pair(method, False, "fp32", {
+                "opt": noise_opt, "epochs": epochs,
+                "opt_label": f"chain(clip, add_noise {NOISE_STD:g}, adam)"},
+                cnn_adapter(build_densenet(DENSENET121_PAPER)), clients,
+                BATCH, dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def lm_link_rows(dev, gen, table):
+    """K1, K2 and K3 at the LM training links' rows, bf16: SmolLM-135M's
+    16,384 x 576 (phase 15 (a), K1 and K2) and Llama-4 Scout's 4,096 x
+    5,120 (phase 15 (b), K1, K2 and K3), each bit-equal to its plain
+    version and on the path its design gives (576: the vector path; 5,120
+    is wider than a group's vectors hold: the general path), then timed
+    as phase 3 times them
+    (K2 beside ``torch.mul``); the entries land in the kernels line's rows
+    under ``lm_576_bf16`` and ``lm_5120_bf16``."""
+    import torch
+    from repro_torch.kernels.act_compress import act_compress as AC
+    from repro_torch.kernels.act_compress import ref as R
+    from repro_torch.kernels.cut_fuse import cut_fuse as CF
+
+    for key, t, d in (("lm_576_bf16", TRAIN_ROWS, 576),
+                      ("lm_5120_bf16", SCOUT_ROWS, 5120)):
+        x = (torch.randn((t, d), device=dev, generator=gen) * 3).to(
+            torch.bfloat16)
+        n = x.numel()
+        q, s = AC.quantize_rows(x)
+        out, lib = (torch.empty_like(x) for _ in range(2))
+        paths = {"K1": k1_path(x), "K2": k2_path(q, x.dtype),
+                 "K3": k3_path(x)}
+        same = {"K1": k1_equals_plain(x, q, s),
+                "K2": rows_vs_plain(AC.dequantize_rows(q, s, x.dtype),
+                                    lambda q, s: R.dequantize_ref(
+                                        q, s, torch.bfloat16), q, s)[0],
+                "K3": rows_vs_plain(CF.roundtrip_rows(x), R.roundtrip_ref,
+                                    x)[0]}
+        # the path the design gives: a row of more vectors than a group
+        # of 32 lanes holds (MAX_VECS each) takes the general path
+        want = "vector" if AC.vector_plans(d, x.dtype) else "general"
+        log(f"  LM link rows {t} x {d} bf16: bit-equal {same}, paths "
+            f"{paths} (the design's: {want})")
+        if not all(same.values()) or not all(
+                p.startswith(want) for p in paths.values()):
+            fail(f"the LM link kernels at {t} x {d}: bit-equal {same}, "
+                 f"paths {paths}, expected {want}")
+        qa, k2a = AC.quantize_args(x, q, s), AC.dequantize_args(q, s, out)
+        entries = {"K1": timed_bare(
+            "K1 cut_quantize", paths["K1"], lambda: AC.quantize_rows(x),
+            lambda: AC.QUANTIZE(*qa), lambda: R.quantize_ref(x),
+            bound("K1", t, d, 2 * n, n + 4 * t), t, d, x.dtype),
+            "K2": timed_bare(
+            "K2 cut_dequantize", paths["K2"],
+            lambda: AC.dequantize_rows(q, s, x.dtype),
+            lambda: AC.DEQUANTIZE(*k2a),
+            lambda: R.dequantize_ref(q, s, torch.bfloat16),
+            bound("K2", t, d, n + 4 * t, 2 * n), t, d, x.dtype,
+            library=lambda: torch.mul(q, s, out=lib))}
+        if d == 5120:
+            k3a = CF.roundtrip_args(x, out)
+            entries["K3"] = timed_bare(
+                "K3 cut_roundtrip", paths["K3"],
+                lambda: CF.roundtrip_rows(x), lambda: CF.ROUNDTRIP(*k3a),
+                lambda: R.roundtrip_ref(x), bound("K3", t, d, 2 * n, 2 * n),
+                t, d, x.dtype)
+        for k, entry in entries.items():
+            table[k][key] = entry
+        del x, q, s, out, lib
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_link():
+    """``act_compress.ops.compress_boundary`` replaced by the plain
+    version of K2(K1) (straight-through all the same) while a train step
+    is made: the step then launches no kernel."""
+    from repro_torch.kernels import straight_through
+    from repro_torch.kernels.act_compress import ops as ACO
+    from repro_torch.kernels.act_compress import ref as R
+
+    kept = ACO.compress_boundary
+    ACO.compress_boundary = straight_through(R.roundtrip_ref)
+    try:
+        yield
+    finally:
+        ACO.compress_boundary = kept
+
+
+def link_launches():
+    from repro_torch.kernels.act_compress import act_compress as AC
+    from repro_torch.kernels.cut_fuse import cut_fuse as CF
+    return {"K1": AC.QUANTIZE.launches, "K2": AC.DEQUANTIZE.launches,
+            "K3": CF.ROUNDTRIP.launches}
+
+
+def launched_since(before) -> dict:
+    return {k: v - before[k] for k, v in link_launches().items()}
+
+
+def params_diff(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+    return max(max_err(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+# the same for one LM training step (phase 15 (a))
+LM_TRAIN_KERNEL_GROUPS = (
+    ("hand kernels K1, K2", ("quantize_vec_kernel", "dequantize_vec_kernel",
+                             "quantize_general_kernel",
+                             "dequantize_kernel")),
+    ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "splitK")),
+    ("softmax / reductions", ("softmax", "reduce", "Reduce", "cumsum",
+                              "scan", "logsumexp")),
+    ("cat / copy", ("CatArrayBatchedCopy", "copy", "cat")),
+    ("elementwise", ("elementwise_kernel",)),
+)
+
+
+def smollm_training(dev, profile=False):
+    """Phase 15 (a): SmolLM-135M SplitFedv3 at published widths and depth
+    (30 layers, cut 4, remat, bf16 compute, f32 masters), 4 hospitals of
+    ``lm_clients`` (seed 0), 2 sequences of 2048 + 1 tokens each a step,
+    ``make_sflv3_train_step(compress=True)`` under ``adam(wsd)``: one
+    joint link call a step, so K1 and K2 launch once a step.  Step 1 is
+    also taken over the plain link from the same state: losses within
+    1e-2, params within two of step 1's learning rates (one Adam step
+    moves a param by about its rate).  Then 5 steps of
+    ``make_plain_train_step`` on the whole model.  ``profile`` profiles
+    one more SFLv3 step (``profile_call``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import optim as O
+    from repro_torch.configs import smollm_135m
+    from repro_torch.data.synthetic import lm_clients
+    from repro_torch.launch.train import (init_sflv3_params,
+                                          make_plain_train_step,
+                                          make_sflv3_train_step)
+    from repro_torch.models.layers import param_count
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.tree import tree_map
+
+    cfg = smollm_135m.CONFIG
+    model = TransformerLM.build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_sflv3_params(model, torch.Generator(device=dev)
+                               .manual_seed(0), TRAIN_HOSPITALS, dev)
+    data = lm_clients(0, cfg.vocab_size, TRAIN_HOSPITALS, 64, LM_SEQ + 1)
+    rng = np.random.default_rng(0)
+    log(f"  {cfg.name} SFLv3: {param_count(params):,} params "
+        f"({TRAIN_HOSPITALS} fronts and the middle), remat {cfg.remat}, "
+        f"compute {str(cfg.compute_dtype)[6:]}; params and data in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def batch():
+        return {"tokens": torch.from_numpy(np.concatenate(
+            [d[rng.integers(0, len(d), TRAIN_SEQS)] for d in data])).to(dev)}
+    sched = O.wsd(TRAIN_WSD["peak"], TRAIN_WSD["warmup"],
+                  TRAIN_WSD["stable"], TRAIN_WSD["decay"])
+    opt = O.adam(sched)
+    step = make_sflv3_train_step(model, opt, TRAIN_HOSPITALS, compress=True)
+    with plain_link():
+        plain_step = make_sflv3_train_step(model, opt, TRAIN_HOSPITALS,
+                                           compress=True)
+
+    b = batch()
+    before = link_launches()
+    pp, _, lp = plain_step(params, opt.init(params), b)
+    plain_n = launched_since(before)
+    state = opt.init(params)
+    losses, step_ms, per_step = [], [], []
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for i in range(TRAIN_STEPS):
+        if i:
+            b = batch()
+        before = link_launches()
+        e0.record()
+        params, state, loss = step(params, state, b)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        per_step.append(launched_since(before))
+        losses.append(float(loss))
+        if i == 0:
+            bar = 2 * float(sched(1))
+            dl, dp = abs(losses[0] - float(lp)), params_diff(params, pp)
+            log(f"    step 1, kernels vs plain link from the same state: "
+                f"loss {losses[0]:.6f} / {float(lp):.6f} (|diff| {dl:.3g}, "
+                f"bar 1e-2), |param diff| {dp:.3g} (bar {bar:.3g}); "
+                f"launches {per_step[0]} / plain {plain_n}")
+            if dl > 1e-2 or dp > bar or any(plain_n.values()):
+                fail(f"{cfg.name}: the training link's kernels disagree "
+                     "with their plain versions")
+            del pp
+    want = {"K1": 1, "K2": 1, "K3": 0}
+    steady = float(np.median(step_ms[1:]))
+    log(f"    losses {[round(x, 4) for x in losses]}")
+    log(f"    step ms: first {step_ms[0]:.1f}, median of the rest "
+        f"{steady:.1f} (min {min(step_ms[1:]):.1f}, max "
+        f"{max(step_ms[1:]):.1f}); {TRAIN_ROWS / steady * 1e3:,.0f} training "
+        f"tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches a "
+        f"step {per_step[0]} (the design's {want})")
+    first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not np.isfinite(losses).all():
+        fail(f"{cfg.name}: non-finite training losses")
+    if not FIRST_LOSS[0] <= losses[0] <= FIRST_LOSS[1]:
+        fail(f"{cfg.name}: first loss {losses[0]:.4f} outside {FIRST_LOSS}")
+    if not last5 < first5:
+        fail(f"{cfg.name}: the loss did not fall ({first5:.4f} -> "
+             f"{last5:.4f})")
+    if any(n != want for n in per_step):
+        fail(f"{cfg.name}: launches a step {per_step}, expected {want}")
+    log(f"    mean loss of the first 5 steps {first5:.4f}, of the last 5 "
+        f"{last5:.4f}")
+    if profile:
+        b = batch()
+        profile_call(lambda: step(params, state, b),
+                     f"{cfg.name} SFLv3 training step ({TRAIN_ROWS} tokens)",
+                     LM_TRAIN_KERNEL_GROUPS)
+
+    full = {"front": tree_map(lambda x: x[0].clone(), params["fronts"]),
+            "middle": params["middle"]}
+    del state
+    popt = O.adam(1e-4)
+    pstate, pstep = popt.init(full), make_plain_train_step(model, popt)
+    pooled = {"tokens": torch.from_numpy(np.concatenate(
+        [d[:TRAIN_SEQS] for d in data])).to(dev)}
+    plosses, pms = [], []
+    for _ in range(PLAIN_STEPS):
+        e0.record()
+        full, pstate, loss = pstep(full, pstate, pooled)
+        e1.record()
+        torch.cuda.synchronize()
+        pms.append(e0.elapsed_time(e1))
+        plosses.append(float(loss))
+    log(f"    make_plain_train_step x {PLAIN_STEPS} on "
+        f"{TRAIN_HOSPITALS * TRAIN_SEQS} x {LM_SEQ + 1} tokens: losses "
+        f"{[round(x, 4) for x in plosses]}, step ms "
+        f"{[round(x, 1) for x in pms]}")
+    if not np.isfinite(plosses).all():
+        fail(f"{cfg.name}: non-finite plain-step losses")
+    del params, full, pstate
+    torch.cuda.empty_cache()
+
+
+def scout_path(dev):
+    """Phase 15 (b): Llama-4 Scout 17B-16E at published widths (d_model
+    5120, 40/8 heads, 16 experts of d_ff 8192, top-1, a shared expert,
+    vocab 202,048), depth cut to 2 layers, cut after the first: each
+    segment holds one MoE layer.  bf16 compute, f32 params, one hospital
+    of 2 sequences of 2048 + 1 tokens.  The scoring ``apply`` over
+    ``roundtrip_boundary`` (K3 once a forward) against the same call over
+    the plain link, by ``LOGIT_BARS``, in turns (plain, K3, K3, plain; the
+    second of each timed); ``loss`` with the MoE aux (finite, aux > 0,
+    every layer's ``dropped`` in [0, 1]); then ``loss.backward()`` over
+    ``compress_boundary`` twice (K1 and K2 once each; the second timed),
+    no optimizer: f32 params
+    and gradients take about 52 GB, and Adam's two moments would not fit
+    beside them."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import llama4_scout_17b_a16e
+    from repro_torch.kernels import straight_through
+    from repro_torch.kernels.act_compress import ops as ACO
+    from repro_torch.kernels.act_compress import ref as R
+    from repro_torch.kernels.cut_fuse.ops import roundtrip_boundary
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import param_count
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(llama4_scout_17b_a16e.CONFIG,
+                              n_layers=SCOUT_LAYERS, cut_layer=SCOUT_CUT)
+    model = TransformerLM.build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    toks = lm_tokens(cfg.vocab_size, LM_SEQ + 1, dev)[:SCOUT_SEQS]
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}, {SCOUT_LAYERS} layers cut at {SCOUT_CUT}: "
+        f"{param_count(params):,} params, segments "
+        f"{[(s.name, [r.kind for r in s.runs]) for s in model.segments]}; "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    plain = straight_through(R.roundtrip_ref)
+    with torch.no_grad():
+        secs, counts = {}, {}
+        for link, fn in (("plain", plain), ("int8", roundtrip_boundary),
+                         ("int8", roundtrip_boundary), ("plain", plain)):
+            # in turns; the first of each warms up
+            before = link_launches()
+            (out, _, aux), sec = timed(lambda: model.apply(
+                params, toks[:, :-1], boundary_fn=fn))
+            counts.setdefault(link, []).append(launched_since(before))
+            secs.setdefault(link, []).append(sec)
+            if link == "int8":
+                lk = out
+            else:
+                lp = out
+            del out
+        sec, psec = secs["int8"][1], secs["plain"][1]
+        log(f"    scoring forward over the int8 link: {sec * 1e3:.1f} ms "
+            f"({SCOUT_ROWS / sec:,.0f} tokens/s; first call "
+            f"{secs['int8'][0] * 1e3:.1f} ms), launches {counts['int8']}; "
+            f"over the plain link {psec * 1e3:.1f} ms (first "
+            f"{secs['plain'][0] * 1e3:.1f} ms), launches {counts['plain']}")
+        ok = logits_agree("K3 link vs plain link, bf16", lk, lp)
+        del lk, lp
+        if not ok or counts["int8"] != [{"K1": 0, "K2": 0, "K3": 1}] * 2 \
+                or any(any(c.values()) for c in counts["plain"]):
+            fail(f"{cfg.name}: the scoring link disagrees with its plain "
+                 f"version, or launched {counts}")
+        dropped, inner = [], MOE.moe_apply
+
+        def recording(p, c, x):
+            y, a = inner(p, c, x)
+            dropped.append(float(a["dropped"]))
+            return y, a
+        MOE.moe_apply = recording
+        try:
+            loss = model.loss(params, {"tokens": toks}, train=False)
+        finally:
+            MOE.moe_apply = inner
+    log(f"    loss {float(loss):.5f} with aux {float(aux):.5f}; dropped "
+        f"share per MoE layer {dropped}")
+    if not (torch.isfinite(loss) and float(aux) > 0
+            and len(dropped) == SCOUT_LAYERS
+            and all(0 <= d <= 1 for d in dropped)):
+        fail(f"{cfg.name}: loss {float(loss)}, aux {float(aux)}, dropped "
+             f"{dropped}")
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+
+    def backward():
+        for leaf in leaves:
+            leaf.grad = None
+        loss = model.loss(params, {"tokens": toks}, train=True,
+                          boundary_fn=ACO.compress_boundary)
+        loss.backward()
+        return loss
+    ns, secs = [], []
+    for _ in range(2):                  # the first warms up
+        before = link_launches()
+        loss, sec = timed(backward)
+        ns.append(launched_since(before))
+        secs.append(sec)
+    n = ns[1] if ns[0] == ns[1] else ns
+    norms = torch._foreach_norm([l.grad for l in leaves])
+    finite = bool(torch.isfinite(torch.stack(norms)).all())
+    log(f"    loss and backward over the int8 link (remat {cfg.remat}): "
+        f"{sec * 1e3:.1f} ms ({SCOUT_ROWS / sec:,.0f} tokens/s; first "
+        f"call {secs[0] * 1e3:.1f} ms), loss "
+        f"{float(loss.detach()):.5f}, launches {n}, every gradient finite "
+        f"{finite}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not finite or n != {"K1": 1, "K2": 1, "K3": 0}:
+        fail(f"{cfg.name}: backward launches {n}, gradients finite "
+             f"{finite}")
+    del params, leaves, loss, norms
+    torch.cuda.empty_cache()
+
+
+def registry_small_against_cpu(dev):
+    """Phase 15 (c): every registry SMOKE config in f32, one forward and
+    one ``make_plain_train_step`` Adam step on the card against the same
+    calls on the CPU from the same params (2 sequences of 33 tokens, and
+    the frontend's embeddings where it has one); then every full CONFIG
+    through ``param_shapes``: its param count, nothing allocated."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import optim as O
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import make_plain_train_step, param_shapes
+    from repro_torch.models.layers import param_count
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for aid, entry in registry.REGISTRY.items():
+        cfg = dataclasses.replace(entry.smoke, compute_dtype=torch.float32)
+        model = TransformerLM.build(cfg)
+        params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(0)
+        b = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 33)).astype(np.int32))}
+        if cfg.frontend:
+            b["frontend_emb"] = torch.from_numpy(rng.normal(size=(
+                2, cfg.frontend_tokens, cfg.frontend_dim)).astype(
+                    np.float32))
+        out = {}
+        for device in ("cpu", dev):
+            p = tree_map(lambda t: t.to(device), params)
+            bd = {k: v.to(device) for k, v in b.items()}
+            logits, _, _ = model.apply(p, bd["tokens"][:, :-1],
+                                       frontend_emb=bd.get("frontend_emb"))
+            opt = O.adam(SMALL_LR, eps=SMALL_EPS)
+            p2, _, loss = make_plain_train_step(model, opt)(
+                p, opt.init(p), bd)
+            out[torch_type(device)] = (logits.cpu(), float(loss),
+                                       tree_map(lambda t: t.cpu(), p2))
+        (lc, fc, pc), (lg, fg, pg) = out["cpu"], out["cuda"]
+        dl, scale, dp = max_err(lg, lc), float(lc.abs().max()), \
+            params_diff(pg, pc)
+        log(f"  {aid} SMOKE ({cfg.arch_type}) f32: |logits card - cpu| "
+            f"{dl:.3g} (bar {5e-5 * scale:.3g}), losses {fg:.7f} / "
+            f"{fc:.7f}, |params after one Adam step| {dp:.3g} (bar "
+            f"{SMALL_PARAM_BAR:g})")
+        if not (dl <= 5e-5 * scale and abs(fg - fc) <= 1e-5
+                and dp <= SMALL_PARAM_BAR):
+            fail(f"the card's {aid} SMOKE disagrees with the CPU's")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    counts = {}
+    for aid, entry in registry.REGISTRY.items():
+        shapes = param_shapes(TransformerLM.build(entry.config))
+        if not all(l.device.type == "meta" for l in tree_leaves(shapes)):
+            fail(f"param_shapes of {aid} allocated a leaf")
+        counts[aid] = param_count(shapes)
+    log(f"  full CONFIG param counts (param_shapes, meta): "
+        f"{json.dumps(counts)}; card memory held before and after "
+        f"{held} / {torch.cuda.memory_allocated()} bytes")
+    if torch.cuda.memory_allocated() != held:
+        fail("param_shapes allocated memory on the card")
+
+
+def lm_train_path(dev, clients, table, profile=False):
+    """Phase 15: LM training and the model kinds.  K1-K3 at the LM links'
+    rows (timed; their launches are not counted), then, with the counts
+    at 0: the compiled engine under add_noise, (a) SmolLM-135M SFLv3
+    training, (b) Llama-4 Scout's MoE layers forward and backward, (c)
+    every registry entry small, card against CPU.  Returns the launches
+    of K1-K3 in (a), (b) and the add_noise pairs (``profile``: and in
+    the profiled step of (a))."""
+    import torch
+
+    lm_link_rows(dev, torch.Generator(device=dev).manual_seed(15),
+                 table)
+    reset_launches()
+    noise_engine_path(dev, clients)
+    smollm_training(dev, profile)
+    scout_path(dev)
+    registry_small_against_cpu(dev)
+    launches = link_launches()
+    log(f"  launches in phase 15: {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel of the LM training path never launched: {launches}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3,
@@ -3835,6 +4372,13 @@ def main():
           "graphs, DenseNet-121 at 224^2 and the U-Net at "
           f"{UNET_SIZE}^2")
     for key, n in observed_path(dev, clients).items():
+        launches[key] += n
+
+    phase("phase 15: LM training and the model kinds — add_noise on the "
+          "compiled engine, SmolLM-135M SFLv3, Llama-4 Scout's MoE layers, "
+          "the registry")
+    for key, n in lm_train_path(dev, clients, table,
+                                args.profile).items():
         launches[key] += n
     del clients
 

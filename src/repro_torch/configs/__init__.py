@@ -1,2 +1,2 @@
-"""Model configurations: the paper's CNNs and the LM architectures of this
-slice (SmolLM-135M, Mamba2-130M)."""
+"""Model configurations: the paper's CNNs (``paper_models``) and the ten
+LM architectures (``registry``)."""

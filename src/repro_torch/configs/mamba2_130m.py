@@ -1,5 +1,6 @@
 """Mamba2-130M — SSD (state-space duality), attention-free [arXiv:2405.21060]."""
 
+from repro_torch.configs.base import ArchEntry, _ALL
 from repro_torch.models.transformer import ModelConfig
 
 CONFIG = ModelConfig(
@@ -15,3 +16,7 @@ SMOKE = ModelConfig(
     ssm_state=16, ssm_head_dim=32, ssm_chunk=8,
     cut_layer=1, remat=False, source="arXiv:2405.21060",
 )
+
+ENTRY = ArchEntry(
+    arch_id="mamba2-130m", config=CONFIG, smoke=SMOKE, shapes=_ALL,
+    skip_notes="runs long_500k: attention-free, O(1) state per token.")

@@ -1,5 +1,6 @@
 """SmolLM-135M — llama-arch small [hf:HuggingFaceTB/SmolLM-135M]."""
 
+from repro_torch.configs.base import ArchEntry, _FULL
 from repro_torch.models.transformer import ModelConfig
 
 CONFIG = ModelConfig(
@@ -15,3 +16,7 @@ SMOKE = ModelConfig(
     vocab_size=512, head_dim=64, cut_layer=1, remat=False,
     source="hf:HuggingFaceTB/SmolLM-135M",
 )
+
+ENTRY = ArchEntry(
+    arch_id="smollm-135m", config=CONFIG, smoke=SMOKE, shapes=_FULL,
+    skip_notes="long_500k skipped: full quadratic attention.")

@@ -120,6 +120,56 @@ def cnn_adapter(model) -> SplitAdapter:
                         batch_keys=("image", "label"))
 
 
+def lm_adapter(model) -> SplitAdapter:
+    """Wrap a ``repro_torch.models.transformer.TransformerLM`` (built with
+    its cut, LS or NLS).  A batch is ``{"tokens": (B, S + 1)[,
+    "frontend_emb": (B, F, dim)]}``; each segment runs alone
+    (``segment_range``) with positions that count a frontend's prefix,
+    and the losses score the text positions only.  As in the reference,
+    the MoE balance losses stay out of the adapter's losses and the
+    padding slots of a padded vocabulary stay in its softmax."""
+    seg_names = tuple(s.name for s in model.segments)
+    seg_index = {s.name: i for i, s in enumerate(model.segments)}
+
+    def inputs(batch):
+        return batch["tokens"][:, :-1]
+
+    def positions(batch):
+        b, s = batch["tokens"].shape
+        fe = batch.get("frontend_emb")
+        total = s - 1 + (fe.shape[1] if fe is not None else 0)
+        return torch.arange(total, dtype=torch.int32,
+                            device=batch["tokens"].device).expand(b, total)
+
+    def apply_seg(seg, seg_params, x, batch, train=False):
+        i = seg_index[seg]
+        out, _, _ = model.apply({seg: seg_params}, x,
+                                positions=positions(batch),
+                                frontend_emb=batch.get("frontend_emb"),
+                                train=train, segment_range=(i, i + 1))
+        return out
+
+    def token_nll(logits, batch):
+        labels = batch["tokens"][:, 1:].long()
+        logits = logits[:, -labels.shape[1]:].float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return lse - ll                               # (B, S)
+
+    def loss_from_output(logits, batch):
+        return token_nll(logits, batch).mean()
+
+    def per_example_loss(logits, batch):
+        return token_nll(logits, batch).mean(-1)
+
+    def scores_from_output(logits):
+        return torch.softmax(logits.float(), dim=-1)
+
+    return SplitAdapter(model.cfg.name, seg_names, model.init_params, inputs,
+                        apply_seg, loss_from_output, scores_from_output,
+                        per_example_loss)
+
+
 PRECISIONS = ("fp32", "bf16")
 
 

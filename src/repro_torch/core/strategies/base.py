@@ -165,19 +165,7 @@ class Strategy:
         return participation or Participation(n_global=self.n_clients,
                                               k=self.n_clients)
 
-    def _check_capturable(self):
-        """The compiled engine replays captured steps: an optimizer whose
-        state a graph cannot replay (``optim.add_noise``'s generator would
-        add the same noise every replay) is refused, never run frozen."""
-        if not self.opt_factory().capturable:
-            raise NotImplementedError(
-                "this optimizer keeps a torch.Generator in its state "
-                "(optim.add_noise), which a captured CUDA graph would replay "
-                "with the same draws every step; the compiled engine does "
-                "not register generator states yet: use engine='stepwise'")
-
     def _run_epoch_compiled(self, state, client_data, rng, batch_size):
-        self._check_capturable()
         out = self._run_compiled(state, client_data, rng, batch_size, 1)
         if out is None:
             # no hospital has a batch: the loop trains nothing, and draws
@@ -218,7 +206,6 @@ class Strategy:
         try:
             with self._span("run", strategy=self.name, n_epochs=n_epochs):
                 if self.engine == "compiled":
-                    self._check_capturable()
                     out = self._run_compiled(state, client_data, rng,
                                              batch_size, n_epochs,
                                              self.participation)

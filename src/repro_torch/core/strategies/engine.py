@@ -404,6 +404,18 @@ def _copy(dst, src):
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
+def opt_counts(opt_state) -> list:
+    """The step counts of an optimizer state, its 0-d int64 leaves (Adam's
+    ``step``, ``add_noise``'s ``count``), in leaf order."""
+    return [l for l in tree_leaves(opt_state)
+            if l.dim() == 0 and l.dtype == torch.int64]
+
+
+def _copy_counts(dst_state, counts) -> None:
+    for d, s in zip(opt_counts(dst_state), counts):
+        d.copy_(s)
+
+
 class Program:
     """Static buffers and named step bodies of one training program.
 
@@ -886,7 +898,8 @@ class SyncProgram(_PackedProgram):
     scatters the slots back and, under SFLv1 (``sync``), puts the slots'
     mean into every hospital's row.  The client Adam keeps ONE step count
     for all hospitals (``count``), as the reference's stacked optimizer
-    does: it advances with the rounds' steps whoever is sampled."""
+    does: it advances with the rounds' steps whoever is sampled (every
+    count of a ``chain``'s state, ``opt_counts``, is kept so)."""
 
     bodies = ("begin", "step", "round")
 
@@ -900,7 +913,7 @@ class SyncProgram(_PackedProgram):
                                     device=self.device)
         self.all_clients = stack_trees(state["clients"])
         self.all_c_opts = stack_trees(state["c_opts"])
-        self.count = state["c_opts"][0]["step"].clone()
+        self.count = [c.clone() for c in opt_counts(state["c_opts"][0])]
         self.clients = [_clone(state["clients"][0]) for _ in range(S)]
         self.c_opts = [_clone(state["c_opts"][0]) for _ in range(S)]
         self.server = _clone(state["server"])
@@ -911,7 +924,7 @@ class SyncProgram(_PackedProgram):
             g = self.slot_gid[j:j + 1]
             _copy(cp, tree_take(self.all_clients, g))
             _copy(co, tree_take(self.all_c_opts, g))
-            co["step"].copy_(self.count)
+            _copy_counts(co, self.count)
 
     def _step(self):
         row = self.row()
@@ -930,7 +943,7 @@ class SyncProgram(_PackedProgram):
             g = self.slot_gid[j:j + 1]
             tree_put(self.all_clients, g, cp)
             tree_put(self.all_c_opts, g, co)
-        self.count.copy_(self.c_opts[0]["step"])
+        _copy(self.count, opt_counts(self.c_opts[0]))
         if self.sync:
             tree_map(lambda x, a: x.copy_(a.expand_as(x)), self.all_clients,
                      tree_mean(self.clients))
@@ -943,7 +956,7 @@ class SyncProgram(_PackedProgram):
     def load(self, state):
         _copy(self.all_clients, stack_trees(state["clients"]))
         _copy(self.all_c_opts, stack_trees(state["c_opts"]))
-        self.count.copy_(state["c_opts"][0]["step"])
+        _copy(self.count, opt_counts(state["c_opts"][0]))
         _copy(self.server, state["server"])
         _copy(self.s_opt, state["s_opt"])
 
@@ -951,9 +964,10 @@ class SyncProgram(_PackedProgram):
         n = len(state["clients"])
         state["clients"] = [tree_map(lambda x, c=c: x[c].clone(),
                                      self.all_clients) for c in range(n)]
-        state["c_opts"] = [
-            {**tree_map(lambda x, c=c: x[c].clone(), self.all_c_opts),
-             "step": self.count.clone()} for c in range(n)]
+        state["c_opts"] = [tree_map(lambda x, c=c: x[c].clone(),
+                                    self.all_c_opts) for c in range(n)]
+        for co in state["c_opts"]:
+            _copy_counts(co, self.count)
         state["server"], state["s_opt"] = (_clone(self.server),
                                            _clone(self.s_opt))
 

@@ -9,7 +9,10 @@ numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) and the port's.
   * an LM's params keep the reference's tree as it is (segment ->
     ``run_<id>`` -> leaves with their leading layer axis), with no
     transposition: a stacked LM leaf is not a conv weight, so they do not
-    go through ``params_from_jax``.
+    go through ``params_from_jax``; an LM SplitFedv3 tree
+    (``launch.train.init_sflv3_params``: ``fronts`` stacked on a leading
+    hospital axis, ``middle``) and its Adam state keep that layout too
+    (``lm_sflv3_from_jax``).
 
 Only numpy crosses this module; it imports nothing of the reference.
 """
@@ -44,16 +47,18 @@ def _unstack(tree, n):
     return [tree_map(lambda a: np.asarray(a)[i], tree) for i in range(n)]
 
 
-def _adam_from_jax(opt, device, n=None):
+def _adam_from_jax(opt, device, n=None, convert=None):
     """Reference Adam state ``{"step", "mu", "nu"}`` -> the port's (a list
-    of ``n`` per-hospital states when the moments are stacked)."""
+    of ``n`` per-hospital states when the moments are stacked); the
+    moments go through ``convert`` (``params_from_jax`` by default)."""
+    convert = convert or params_from_jax
     step = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int64,
                         device=device)
     if n is None:
-        return {"step": step, "mu": params_from_jax(opt["mu"], device),
-                "nu": params_from_jax(opt["nu"], device)}
-    return [{"step": step.clone(), "mu": params_from_jax(m, device),
-             "nu": params_from_jax(v, device)}
+        return {"step": step, "mu": convert(opt["mu"], device),
+                "nu": convert(opt["nu"], device)}
+    return [{"step": step.clone(), "mu": convert(m, device),
+             "nu": convert(v, device)}
             for m, v in zip(_unstack(opt["mu"], n), _unstack(opt["nu"], n))]
 
 
@@ -99,3 +104,15 @@ def lm_params_to_numpy(tree):
     """The port's LM params -> a tree of numpy arrays in the reference's
     layout (the inverse of ``lm_params_from_jax``)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def lm_sflv3_from_jax(params, opt=None, device="cpu"):
+    """A reference LM SplitFedv3 param tree (``{"fronts": stacked on a
+    leading hospital axis, "middle"}``; numpy leaves) and, if given, its
+    Adam state ``{"step", "mu", "nu"}`` -> the port's, leaf for leaf with
+    the stacked layout kept (so a global-norm clip and Adam see the
+    reference's tree).  Returns the params, or ``(params, opt)``."""
+    p = lm_params_from_jax(params, device)
+    if opt is None:
+        return p
+    return p, _adam_from_jax(opt, device, convert=lm_params_from_jax)

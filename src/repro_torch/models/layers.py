@@ -11,9 +11,11 @@ to ATen / cuDNN.  LM activations are (B, S, D) as in the reference, and
 each op promotes and casts where the reference's does (a bf16 tensor times
 an f32 one is f32 in both frameworks).
 
-Every ``*_init`` draws on the CPU from an explicit ``torch.Generator`` and
-then moves the tensor, so one seed gives the same weights on every device;
-on the ``meta`` device nothing is drawn (shapes only).
+Every ``*_init`` draws from an explicit ``torch.Generator`` on the
+generator's device and then moves the tensor, so one seed on a CPU
+generator gives the same weights on every device (a CUDA generator draws
+a large model on the card itself); on the ``meta`` device nothing is drawn
+(shapes only).
 """
 
 from __future__ import annotations
@@ -30,9 +32,12 @@ INT32_MAX = torch.iinfo(torch.int32).max
 
 
 def _normal(gen, shape, scale, device, dtype=torch.float32):
+    """N(0, scale^2) draws of ``shape`` from ``gen`` on the generator's
+    own device, then moved to ``device``; on ``meta`` nothing is drawn."""
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
     return w.to(device=device, dtype=dtype)
 
 

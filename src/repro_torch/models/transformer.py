@@ -1,22 +1,29 @@
-"""Decoder-only LM family: the port of ``repro/models/transformer.py`` for
-the kinds this slice carries, ``dense`` (attention + SwiGLU, e.g.
-SmolLM-135M) and ``mamba`` (Mamba2/SSD).
+"""Decoder-only LM family: the port of ``repro/models/transformer.py``.
 
 The model is an ordered list of **segments**, the unit of the paper's
 cut-layer partition:
 
-    front  : embedding + layers[0:cut]
-    middle : layers[cut:L] + final norm + LM head
+    front  : embedding (+ modality projector) + layers[0:cut]
+    middle : layers[cut:L] + final norm (+ LM head in label-sharing mode)
+    tail   : LM head (only in the non-label-sharing / U-shaped mode)
 
 Within a segment, consecutive same-kind layers are grouped into **runs**
 whose params are stacked on a leading layer axis, as in the reference (a
 run split at the cut keeps its id in front and takes ``id + 1000`` in the
 middle); a run is a Python loop over that axis where the reference has
-``lax.scan``.  MoE layers, the hybrid ``shared`` block, modality frontends,
-the U-shaped (``nls``) tail and a padded vocabulary wait for later slices:
-``build`` refuses them.  Training (``remat``, gradients through the
-kernels) is not ported yet either; ``remat`` is kept as a field and has no
-effect.
+``lax.scan``.  Layer kinds: ``dense`` (attention + SwiGLU), ``moe``
+(attention + MoE, ``models/moe.py``), ``mamba`` (Mamba2/SSD) and
+``shared`` (the Zamba2-style shared attention block: one param set in the
+segment that owns it, applied at several depths, each application with
+its own KV cache).  A vision or audio frontend is a stub: its embeddings
+arrive precomputed and a ``projector`` maps them to ``d_model`` ahead of
+the token embeddings.  ``vocab_pad_to`` pads the embedding and head to a
+multiple, and ``loss`` masks the padding slots out of the softmax.
+
+Training: ``apply(train=True)`` with ``cfg.remat`` recomputes each layer
+in the backward pass (``torch.utils.checkpoint``, the reference's
+``nothing_saveable`` policy), and the MoE balance losses come back as
+``aux``, which ``loss`` adds.
 
 Caches are updated in place (see ``layers.attention_apply``); a run's
 cache holds stacked tensors and one Python ``index``.
@@ -29,9 +36,12 @@ from typing import Any
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +95,13 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def padded_vocab(self) -> int:
+        if not self.vocab_pad_to:
+            return self.vocab_size
+        m = self.vocab_pad_to
+        return ((self.vocab_size + m - 1) // m) * m
+
     def attn_config(self) -> L.AttnConfig:
         return L.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
@@ -97,6 +114,12 @@ class ModelConfig:
             d_model=self.d_model, d_state=self.ssm_state,
             head_dim=self.ssm_head_dim, n_groups=self.ssm_n_groups,
             chunk=self.ssm_chunk, conv_gather=self.mamba_conv_gather)
+
+    def moe_config(self) -> MOE.MoEConfig:
+        return MOE.MoEConfig(
+            d_model=self.d_model, d_ff=self.d_ff, n_experts=self.n_experts,
+            top_k=self.top_k, capacity_factor=self.capacity_factor,
+            chunk=self.moe_chunk, n_shared_experts=self.n_shared_experts)
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -151,7 +174,24 @@ def _dense_block_apply(p, cfg, x, positions, cache, use_pallas=False):
         positions, cache, use_pallas=use_pallas)
     x = x + h
     x = x + L.swiglu_apply(p["mlp"], L.rmsnorm_apply(p["ln2"], x))
-    return x, new_cache
+    return x, new_cache, None
+
+
+def _moe_block_init(gen, cfg: ModelConfig, device):
+    return {"ln1": L.rmsnorm_init(cfg.d_model, device),
+            "attn": L.attention_init(gen, cfg.attn_config(), device),
+            "ln2": L.rmsnorm_init(cfg.d_model, device),
+            "moe": MOE.moe_init(gen, cfg.moe_config(), device)}
+
+
+def _moe_block_apply(p, cfg, x, positions, cache, use_pallas=False):
+    h, new_cache = L.attention_apply(
+        p["attn"], cfg.attn_config(), L.rmsnorm_apply(p["ln1"], x),
+        positions, cache, use_pallas=use_pallas)
+    x = x + h
+    y, aux = MOE.moe_apply(p["moe"], cfg.moe_config(),
+                           L.rmsnorm_apply(p["ln2"], x))
+    return x + y, new_cache, 0.01 * aux["lb_loss"] + 0.001 * aux["z_loss"]
 
 
 def _mamba_block_init(gen, cfg: ModelConfig, device):
@@ -163,15 +203,19 @@ def _mamba_block_apply(p, cfg, x, positions, cache, use_pallas=False):
     h, new_cache = M.mamba_apply(p["mamba"], cfg.mamba_config(),
                                  L.rmsnorm_apply(p["ln"], x), cache,
                                  use_pallas=use_pallas)
-    return x + h, new_cache
+    return x + h, new_cache, None
 
 
-_BLOCK_INIT = {"dense": _dense_block_init, "mamba": _mamba_block_init}
-_BLOCK_APPLY = {"dense": _dense_block_apply, "mamba": _mamba_block_apply}
+# a block returns (x, new_cache, aux): aux is None where the kind has no
+# auxiliary loss (the reference's f32 zero)
+_BLOCK_INIT = {"dense": _dense_block_init, "moe": _moe_block_init,
+               "mamba": _mamba_block_init, "shared": _dense_block_init}
+_BLOCK_APPLY = {"dense": _dense_block_apply, "moe": _moe_block_apply,
+                "mamba": _mamba_block_apply, "shared": _dense_block_apply}
 
 
 def _block_cache_init(kind, cfg: ModelConfig, batch, max_len, dtype, device):
-    if kind == "dense":
+    if kind in ("dense", "moe", "shared"):
         if cfg.sliding_window:
             # ring buffer: a sliding-window cache never needs more than the
             # window
@@ -185,6 +229,10 @@ def _block_cache_init(kind, cfg: ModelConfig, batch, max_len, dtype, device):
                               device)
 
 
+def _add(aux, a):
+    return aux if a is None else (a if aux is None else aux + a)
+
+
 # ---------------------------------------------------------------------------
 # runs (stacks of same-kind layers)
 # ---------------------------------------------------------------------------
@@ -195,6 +243,10 @@ def _layer(tree, i):
 
 
 def _run_init(gen, spec: RunSpec, cfg: ModelConfig, device):
+    """A run's layers stacked on a leading axis; None for a ``shared``
+    run, whose params are the segment's ``shared_block``."""
+    if spec.kind == "shared":
+        return None
     layers = [_BLOCK_INIT[spec.kind](gen, cfg, device)
               for _ in range(spec.count)]
 
@@ -204,24 +256,47 @@ def _run_init(gen, spec: RunSpec, cfg: ModelConfig, device):
     return stack(*layers)
 
 
-def _run_apply(run_p, spec: RunSpec, cfg: ModelConfig, x, positions, cache,
-               use_pallas=False):
-    """One layer at a time over the stacked params; a cache's tensors are
-    updated in place through their per-layer views."""
+def _run_apply(run_p, shared_p, spec: RunSpec, cfg: ModelConfig, x,
+               positions, cache, use_pallas=False, remat=False):
+    """One layer at a time over the stacked params (a ``shared`` run: the
+    shared block once, on its own unstacked cache); a cache's tensors are
+    updated in place through their per-layer views.  ``remat`` (training,
+    no cache) recomputes each layer in the backward pass.  Returns (x,
+    cache, aux), aux the layers' summed auxiliary loss or None."""
     apply = _BLOCK_APPLY[spec.kind]
-    nc = None
+    if spec.kind == "shared":
+        if shared_p is None:
+            raise TypeError(
+                "a shared layer found no shared_block: pass the params of "
+                "the segment that owns it")
+        x, nc, aux = apply(shared_p, cfg, x, positions, cache, use_pallas)
+        if cache is not None:
+            cache["index"] = nc["index"]
+        return x, cache, aux
+    def layer(lp, x):
+        x, _, a = apply(lp, cfg, x, positions, None, use_pallas)
+        return x, a
+
+    aux = nc = None
     for i in range(spec.count):
-        lc = None if cache is None else {
-            k: v if k == "index" else v[i] for k, v in cache.items()}
-        x, nc = apply(_layer(run_p, i), cfg, x, positions, lc, use_pallas)
+        lp = _layer(run_p, i)
+        if remat and cache is None:
+            x, a = checkpoint(layer, lp, x, use_reentrant=False)
+        else:
+            lc = None if cache is None else {
+                k: v if k == "index" else v[i] for k, v in cache.items()}
+            x, nc, a = apply(lp, cfg, x, positions, lc, use_pallas)
+        aux = _add(aux, a)
     if cache is not None and "index" in cache:
         cache["index"] = nc["index"]     # every layer advanced it alike
-    return x, cache
+    return x, cache, aux
 
 
 def _run_cache_init(spec: RunSpec, cfg: ModelConfig, batch, max_len, dtype,
                     device):
     one = _block_cache_init(spec.kind, cfg, batch, max_len, dtype, device)
+    if spec.kind == "shared":
+        return one
     return {k: v if k == "index" else
             v.expand(spec.count, *v.shape).clone() for k, v in one.items()}
 
@@ -232,44 +307,64 @@ def _run_cache_init(spec: RunSpec, cfg: ModelConfig, batch, max_len, dtype,
 
 @dataclasses.dataclass(frozen=True)
 class SegmentDef:
-    name: str                         # front | middle
+    name: str                         # front | middle | tail
     runs: tuple[RunSpec, ...]         # layer runs inside this segment
     has_embed: bool = False
+    has_frontend: bool = False
     has_final_norm: bool = False
     has_head: bool = False
+    has_shared: bool = False          # owns the shared-attn param set
 
 
 def _segment_init(gen, seg: SegmentDef, cfg: ModelConfig, device):
     p = {}
     if seg.has_embed:
-        p["embed"] = L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+        p["embed"] = L.embedding_init(gen, cfg.padded_vocab, cfg.d_model,
                                       device)
+    if seg.has_frontend:
+        p["projector"] = L.dense_init(gen, cfg.frontend_dim, cfg.d_model,
+                                      device)
+    if seg.has_shared:
+        p["shared_block"] = _dense_block_init(gen, cfg, device)
     for spec in seg.runs:
-        p[f"run_{spec.run_id}"] = _run_init(gen, spec, cfg, device)
+        if spec.kind != "shared":
+            p[f"run_{spec.run_id}"] = _run_init(gen, spec, cfg, device)
     if seg.has_final_norm:
         p["final_norm"] = L.rmsnorm_init(cfg.d_model, device)
     if seg.has_head:
-        p["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, device)
+        p["head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab, device)
     return p
 
 
 def _segment_apply(p, seg: SegmentDef, cfg: ModelConfig, x, ctx):
     """x: token ids (B,S) if seg.has_embed else hidden (B,S,D).
-    ctx: dict(positions, cache[segment] or None, use_pallas).
-    Returns (x, new_seg_cache)."""
+    ctx: dict(positions, cache[segment] or None, use_pallas, train,
+    frontend_emb, shared_block).  Returns (x, new_seg_cache, aux)."""
     positions = ctx["positions"]
     cache = ctx.get("cache")
+    remat = cfg.remat and ctx.get("train", False)
+    aux = None
     if seg.has_embed:
-        x = L.embedding_apply(p["embed"], x, cfg.compute_dtype)
+        tok_emb = L.embedding_apply(p["embed"], x, cfg.compute_dtype)
+        if seg.has_frontend and ctx.get("frontend_emb") is not None:
+            # decode steps past the prefix pass no frontend embeddings
+            pe = ctx["frontend_emb"].to(cfg.compute_dtype)
+            x = torch.cat([L.dense_apply(p["projector"], pe), tok_emb], 1)
+        else:
+            x = tok_emb
+    shared_p = p.get("shared_block") or ctx.get("shared_block")
     for spec in seg.runs:
         rc = cache[f"cache_{spec.run_id}"] if cache is not None else None
-        x, _ = _run_apply(p[f"run_{spec.run_id}"], spec, cfg, x, positions,
-                          rc, use_pallas=ctx.get("use_pallas", False))
+        x, _, a = _run_apply(p.get(f"run_{spec.run_id}"), shared_p, spec,
+                             cfg, x, positions, rc,
+                             use_pallas=ctx.get("use_pallas", False),
+                             remat=remat)
+        aux = _add(aux, a)
     if seg.has_final_norm:
         x = L.rmsnorm_apply(p["final_norm"], x)
     if seg.has_head:
         x = L.dense_apply(p["head"], x)
-    return x, cache
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -285,17 +380,11 @@ class TransformerLM:
     @staticmethod
     def build(cfg: ModelConfig, cut: int | None = None,
               nls: bool = False) -> "TransformerLM":
-        """Split the layer stack at ``cut`` (the paper's cut layer)."""
-        kinds = layer_kinds(cfg)
-        missing = sorted({k for k in kinds if k not in _BLOCK_INIT})
-        for flag, what in ((missing, f"layer kinds {missing}"),
-                           (cfg.frontend, f"the {cfg.frontend} frontend"),
-                           (nls, "nls=True (the U-shaped tail)"),
-                           (cfg.vocab_pad_to, "vocab_pad_to")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} not ported yet (ROADMAP M12)")
+        """Split the layer stack at ``cut`` (the paper's cut layer; it
+        counts layers including ``shared`` applications).  ``nls`` adds
+        the U-shaped client tail holding the LM head."""
         cut = cfg.cut_layer if cut is None else cut
+        kinds = layer_kinds(cfg)
         cut = max(0, min(cut, len(kinds)))
         front_runs, middle_runs, seen = [], [], 0
         for r in group_runs(kinds):
@@ -309,20 +398,35 @@ class TransformerLM:
                 middle_runs.append(RunSpec(r.kind, r.count - (cut - seen),
                                            r.run_id + 1000))
                 seen = cut
-        return TransformerLM(cfg, (
-            SegmentDef("front", tuple(front_runs), has_embed=True),
-            SegmentDef("middle", tuple(middle_runs), has_final_norm=True,
-                       has_head=True)))
+        shared_in_front = any(r.kind == "shared" for r in front_runs)
+        shared_in_middle = any(r.kind == "shared" for r in middle_runs)
+        segs = [SegmentDef("front", tuple(front_runs), has_embed=True,
+                           has_frontend=cfg.frontend is not None,
+                           has_shared=shared_in_front),
+                SegmentDef("middle", tuple(middle_runs), has_final_norm=True,
+                           has_head=not nls,
+                           has_shared=shared_in_middle
+                           and not shared_in_front)]
+        if nls:
+            segs.append(SegmentDef("tail", (), has_head=True))
+        return TransformerLM(cfg, tuple(segs))
 
     # ---- params -----------------------------------------------------------
-    def init_params(self, gen: torch.Generator, device=None):
-        """Every param, drawn on the CPU from ``gen`` in segment, run and
-        layer order and moved to ``device`` (the CUDA card by default).
-        The reference's ``init`` also returns a logical-axes tree for its
-        launcher, which is not ported yet."""
-        device = resolve_device(device)
+    def init_params(self, gen: torch.Generator | None, device=None,
+                    segments=None):
+        """Every param, drawn from ``gen`` (on the generator's device) in
+        segment, run and layer order and moved to ``device`` (the CUDA
+        card by default); ``segments`` names the segments to draw (all by
+        default).  On ``device="meta"`` nothing is drawn or allocated and
+        ``gen`` may be None: the params' shapes alone
+        (``launch.train.param_shapes``).  The reference's ``init`` also
+        returns a logical-axes tree for its launcher, which is not ported
+        yet."""
+        device = (torch.device("meta") if str(device) == "meta"
+                  else resolve_device(device))
         return {seg.name: _segment_init(gen, seg, self.cfg, device)
-                for seg in self.segments}
+                for seg in self.segments
+                if segments is None or seg.name in segments}
 
     # ---- caches -----------------------------------------------------------
     def cache_init(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -335,44 +439,68 @@ class TransformerLM:
 
     # ---- forward ----------------------------------------------------------
     def apply(self, params, tokens, *, positions=None, cache=None,
-              use_pallas=False, train=False, segment_range=(0, None),
-              boundary_fn=None):
+              frontend_emb=None, use_pallas=False, train=False,
+              segment_range=(0, None), boundary_fn=None):
         """Full or partial (``segment_range``) forward.  tokens: (B,S)
-        integer ids on the params' device.  Returns (logits_or_hidden,
-        new_cache, aux); aux is the f32 zero of the dense and mamba kinds
-        (MoE's balance loss waits for MoE).  ``train`` changes nothing in
-        this slice."""
+        integer ids on the params' device; ``frontend_emb`` (B, F,
+        frontend_dim) precomputed modality embeddings, prepended (the
+        positions count them).  Returns (logits_or_hidden, new_cache,
+        aux), aux the f32 sum of the MoE layers' balance losses (zero for
+        the other kinds).  ``train`` turns on ``cfg.remat``."""
         b, s = tokens.shape[:2]
         if positions is None:
-            positions = torch.arange(s, dtype=torch.int32,
-                                     device=tokens.device).expand(b, s)
+            total = s + (frontend_emb.shape[1]
+                         if frontend_emb is not None else 0)
+            positions = torch.arange(total, dtype=torch.int32,
+                                     device=tokens.device).expand(b, total)
+        shared_block = None
+        for seg in self.segments:
+            if seg.has_shared and seg.name in params:
+                shared_block = params[seg.name].get("shared_block")
         x = tokens
         start, stop = segment_range
         segs = self.segments[start:stop]
         new_cache = dict(cache) if cache is not None else None
+        aux = torch.zeros((), device=tokens.device)
         for si, seg in enumerate(segs):
             ctx = {"positions": positions,
                    "cache": cache[seg.name] if cache is not None else None,
-                   "use_pallas": use_pallas}
-            x, seg_cache = _segment_apply(params[seg.name], seg, self.cfg,
-                                          x, ctx)
+                   "use_pallas": use_pallas, "train": train,
+                   "frontend_emb": frontend_emb,
+                   "shared_block": shared_block}
+            x, seg_cache, a = _segment_apply(params[seg.name], seg, self.cfg,
+                                             x, ctx)
+            if a is not None:
+                aux = aux + a.float()
             if cache is not None:
                 new_cache[seg.name] = seg_cache
             if boundary_fn is not None and si != len(segs) - 1:
                 # the paper's client->server link (e.g. int8 compression)
                 x = boundary_fn(x)
-        return x, new_cache, torch.zeros((), device=tokens.device)
+        return x, new_cache, aux
 
     # ---- losses -----------------------------------------------------------
     def loss(self, params, batch, *, train=True, use_pallas=False,
              boundary_fn=None):
-        """Next-token cross-entropy.  batch: {"tokens": (B, S)}."""
+        """Next-token cross-entropy plus ``aux``.  batch: {"tokens": (B,
+        S), ["frontend_emb"]}; with a frontend only the text positions are
+        scored."""
         tokens = batch["tokens"]
-        logits, _, aux = self.apply(params, tokens[:, :-1], train=train,
-                                    use_pallas=use_pallas,
-                                    boundary_fn=boundary_fn)
-        labels = tokens[:, 1:].long()
-        logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
-        return (lse - ll).mean() + aux
+        logits, _, aux = self.apply(
+            params, tokens[:, :-1], frontend_emb=batch.get("frontend_emb"),
+            train=train, use_pallas=use_pallas, boundary_fn=boundary_fn)
+        return token_nll(self.cfg, logits, tokens).mean() + aux
+
+
+def token_nll(cfg: ModelConfig, logits, tokens):
+    """(B, S-1) next-token negative log-likelihoods of ``tokens`` (B, S)
+    under ``logits``: a frontend's prefix positions are dropped, and the
+    padding slots of a padded vocabulary are masked to -1e30 in f32."""
+    labels = tokens[:, 1:].long()
+    logits = logits[:, -labels.shape[1]:].float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(pad >= cfg.vocab_size, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return lse - ll

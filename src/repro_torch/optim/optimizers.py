@@ -13,14 +13,18 @@ update makes no host-to-device copy and no host decision: captured in a
 CUDA graph, every replay reads and advances the count on the card and
 takes that step's rate.
 
-``add_noise`` keeps a ``torch.Generator`` in its state.  A captured graph
-would replay the same draws every time, so the compiled engine refuses an
-optimizer that holds one (``Optimizer.capturable``).
+``add_noise`` keeps its PRNG state as a device count, as the reference
+keeps its key in the optimizer state: update ``n`` draws a counter-based
+stream (Threefry-2x32 of the seed and ``n``), so a captured graph draws
+fresh noise at every replay, and a state that is copied, stacked or left
+alone on a padding step draws exactly what the stepwise engine draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Any, Callable
 
 import torch
@@ -32,9 +36,6 @@ from repro_torch.tree import tree_leaves, tree_map
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[..., tuple[Any, Any]]   # (grads, state, params) -> (updates, state)
-    #: False when the state holds host objects a CUDA graph cannot replay
-    #: (``add_noise``'s generator): the compiled engine raises on it
-    capturable: bool = True
 
 
 def _lr_at(lr, step):
@@ -121,40 +122,82 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
     return Optimizer(init, update)
 
 
-def _normal(shape, generator, device) -> torch.Tensor:
-    """N(0, 1) f32 draws of ``shape`` from ``generator`` (one call per
-    leaf, in leaf order)."""
-    return torch.randn(shape, generator=generator, dtype=torch.float32,
-                       device=device)
+_M32 = 0xFFFFFFFF
+_ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds (Salmon et al., SC 2011; the generator
+    behind ``jax.random``): key words ``(k0, k1)`` and counter words
+    ``(x0, x1)`` are int64 tensors or ints holding uint32 values, the two
+    output words likewise.  Additions, rotations and xors only, so it runs
+    on any device and inside a captured graph."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for r in range(20):
+        x0 = (x0 + x1) & _M32
+        rot = _ROTATIONS[r % 8]
+        x1 = (((x1 << rot) | (x1 >> (32 - rot))) & _M32) ^ x0
+        if r % 4 == 3:
+            s = r // 4 + 1
+            x0 = (x0 + ks[s % 3]) & _M32
+            x1 = (x1 + ks[(s + 1) % 3] + s) & _M32
+    return x0, x1
+
+
+def _normal(shape, key, device) -> torch.Tensor:
+    """N(0, 1) f32 draws of ``shape`` for ``key = (seed, count, leaf)``,
+    ``count`` an int64 device tensor: element ``i`` is Box-Muller of the
+    two Threefry words of counter ``(i, leaf)`` under key ``(seed,
+    count)``, so the draws are a function of the key alone."""
+    seed, count, leaf = key
+    n = 1
+    for d in shape:
+        n *= int(d)
+    if n > _M32:
+        raise ValueError(f"a leaf of {n} elements exceeds the 2^32 counter")
+    w0, w1 = threefry2x32(seed & _M32, count & _M32,
+                          torch.arange(n, dtype=torch.int64, device=device),
+                          leaf & _M32)
+    u1 = ((w0 >> 8) + 1).to(torch.float32) * 2.0 ** -24      # (0, 1]
+    u2 = (w1 >> 8).to(torch.float32) * 2.0 ** -24            # [0, 1)
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2 * math.pi * u2)
+    return z.reshape(shape)
 
 
 @torch.no_grad()
-def tree_gaussian_noise(tree, generator: torch.Generator, std: float):
-    """``tree + N(0, std^2)`` leaf-wise, each leaf's draws the next of
-    ``generator``'s stream, original leaf dtypes preserved."""
+def tree_gaussian_noise(tree, key, std: float):
+    """``tree + N(0, std^2)`` leaf-wise, original leaf dtypes preserved;
+    ``key = (seed, count)`` with ``count`` an int64 tensor on the tree's
+    device, leaf ``j`` drawing ``_normal``'s stream ``(seed, count, j)``."""
     if std <= 0:
         return tree
-    return tree_map(lambda l: l + (std * _normal(l.shape, generator,
-                                                 l.device)).to(l.dtype),
-                    tree)
+    seed, count = key
+    leaf = itertools.count()
+    return tree_map(lambda l: l + (std * _normal(
+        l.shape, (seed, count, next(leaf)), l.device)).to(l.dtype), tree)
 
 
 def add_noise(std: float, seed: int = 0) -> Optimizer:
     """Additive iid Gaussian gradient noise (``chain`` it AFTER clipping
     for a DP-style update rule; ``repro_torch.privacy``'s per-example
-    DP-SGD noises the clipped SUM instead).  The generator, on the params'
-    device and seeded with ``seed``, lives in the state and advances every
-    update."""
+    DP-SGD noises the clipped SUM instead).  The state is the update
+    count, an int64 tensor on the params' device; update ``n`` draws
+    ``tree_gaussian_noise``'s stream ``(seed, n)``, so a fresh state
+    repeats the draws and every update (every replay of a captured step)
+    draws new ones."""
     def init(params):
-        return {"generator": torch.Generator(device=_device(params))
-                .manual_seed(seed)}
+        return {"count": _count(params)}
 
+    @torch.no_grad()
     def update(grads, state, params=None):
         if std <= 0:
             return grads, state
-        return tree_gaussian_noise(grads, state["generator"], std), state
+        count = state["count"] + 1
+        return (tree_gaussian_noise(grads, (seed, count), std),
+                {"count": count})
 
-    return Optimizer(init, update, capturable=False)
+    return Optimizer(init, update)
 
 
 def chain(*opts: Optimizer) -> Optimizer:
@@ -168,7 +211,7 @@ def chain(*opts: Optimizer) -> Optimizer:
             new_state.append(s)
         return grads, tuple(new_state)
 
-    return Optimizer(init, update, all(o.capturable for o in opts))
+    return Optimizer(init, update)
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax``, ``jaxlib`` or the JAX package ``repro``,
-or any package the card's machine lacks (its ``ast`` is read, so an import
-inside a function counts too)."""
+"""The port stands alone: no module of ``src/repro_torch/`` (every file
+under it, new ones included), not ``chip_smoke.py`` and no port example
+(``examples/*_torch.py``) imports ``jax``, ``jaxlib`` or the JAX package
+``repro``, or any package the card's machine lacks (its ``ast`` is read,
+so an import inside a function counts too)."""
 
 import ast
 import sys
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 

@@ -180,17 +180,6 @@ def test_int8_cut_link_matches_repro(name):
     assert abs(losst - lossj) <= 1e-3
 
 
-def test_build_refuses_what_is_not_ported():
-    for kw in (dict(arch_type="moe", n_experts=4, top_k=2),
-               dict(arch_type="hybrid", hybrid_attn_every=1,
-                    ssm_state=16, ssm_head_dim=16),
-               dict(frontend="vision"), dict(vocab_pad_to=128)):
-        with pytest.raises(NotImplementedError):
-            TransformerLM.build(TConfig(**{**GQA, **kw}))
-    with pytest.raises(NotImplementedError):
-        TransformerLM.build(TConfig(**GQA), nls=True)
-
-
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tm = TransformerLM.build(TConfig(**GQA))

@@ -10,8 +10,13 @@
   ints and from device step counts, within 1e-6 relative.
 * The compiled engine on a schedule and decay: bit-equal to the stepwise
   engine for SFLv3 and SL-AM, with each step's rate the schedule's (a
-  rate frozen at the first step would break it); and it refuses
-  ``add_noise``, whose generator a captured graph would replay frozen.
+  rate frozen at the first step would break it).
+* ``add_noise``'s counter-based stream: Threefry-2x32 bit-equal to the
+  reference's ``threefry_2x32``, N(0, 1) moments, the reference's chain
+  properties (clip then noise, zero std, bf16 Adam state), and the
+  compiled engine under ``chain(clip_by_global_norm, add_noise, adam)``
+  bit-equal to the stepwise engine on FL (hospitals of unequal batch
+  counts, so masked steps) and SFLv3, each step body drawing new noise.
 """
 
 import jax
@@ -137,7 +142,8 @@ def test_add_noise_draws_from_its_seeded_generator():
     assert torch.equal(a["w"], again["w"]) and not torch.equal(a["w"],
                                                                b["w"])
     assert TO.add_noise(0.0).update(g, {})[0] is g
-    assert not opt.capturable and not TO.chain(TO.sgd(0.1), opt).capturable
+    # the stream's state is one int64 count on the params' device
+    assert s["count"].dtype == torch.int64 and int(s["count"]) == 1
 
 
 SCHEDULES = {
@@ -208,15 +214,106 @@ def test_engines_bit_equal_under_schedule_and_decay(method):
         {float(sched(torch.tensor(s))) for s in range(1, steps + 1)})
 
 
-def test_compiled_engine_refuses_add_noise():
+# -- add_noise's stream and the compiled engine ------------------------------
+
+def test_threefry_matches_reference_bits():
+    from jax._src import prng
+    rng = np.random.default_rng(0)
+    key = rng.integers(0, 2 ** 32, 2, dtype=np.uint64)
+    ctr = rng.integers(0, 2 ** 32, 64, dtype=np.uint64)
+    want = np.asarray(prng.threefry_2x32(jnp.asarray(key, jnp.uint32),
+                                         jnp.asarray(ctr, jnp.uint32)))
+    x = torch.from_numpy(ctr.astype(np.int64))
+    w0, w1 = t_optimizers.threefry2x32(int(key[0]), int(key[1]), x[:32],
+                                       x[32:])
+    np.testing.assert_array_equal(torch.cat([w0, w1]).numpy(),
+                                  want.astype(np.int64))
+
+
+def test_counter_normal_moments_and_streams():
+    count = torch.tensor(1)
+    z = t_optimizers._normal((200_000,), (0, count, 0), torch.device("cpu"))
+    # N(0, 1): mean within 5 standard errors, variance within 2%
+    assert abs(float(z.mean())) < 5 / np.sqrt(2e5)
+    assert abs(float(z.var()) - 1) < 0.02 and bool(torch.isfinite(z).all())
+    other = [t_optimizers._normal((1000,), k, torch.device("cpu"))
+             for k in ((1, count, 0), (0, count + 1, 0), (0, count, 1))]
+    assert all(not torch.equal(z[:1000], o) for o in other)
+    again = t_optimizers._normal((1000,), (0, torch.tensor(1), 0),
+                                 torch.device("cpu"))
+    assert torch.equal(z[:1000], again)
+
+
+def test_chain_properties_of_the_reference():
+    """tests/test_privacy.py's chain properties on the port: clip then
+    noise leaves the noise unbounded on top of the clipped gradient, noise
+    then clip bounds the update; zero std is the identity and keeps the
+    count; the bf16 Adam state rides along."""
+    g = {"w": torch.full((512,), 100.0)}
+    clip_noise = TO.chain(TO.clip_by_global_norm(1.0),
+                          TO.add_noise(0.5, seed=1))
+    noise_clip = TO.chain(TO.add_noise(0.5, seed=1),
+                          TO.clip_by_global_norm(1.0))
+    u1, _ = clip_noise.update(g, clip_noise.init(g))
+    u2, _ = noise_clip.update(g, noise_clip.init(g))
+    assert float(u2["w"].norm()) <= 1.0 + 1e-5
+    assert float(u1["w"].norm()) > 1.0
+    clipped, _ = TO.clip_by_global_norm(1.0).update(g, {})
+    assert abs(float((u1["w"] - clipped["w"]).std()) - 0.5) < 0.1
+    g = {"w": torch.arange(8.0)}
+    out, s = TO.add_noise(0.0).update(g, TO.add_noise(0.0).init(g))
+    assert torch.equal(out["w"], g["w"]) and int(s["count"]) == 0
+    noisy = TO.add_noise(1.0)
+    a, s = noisy.update(g, noisy.init(g))
+    b, s = noisy.update(g, s)
+    assert float((a["w"] - b["w"]).abs().max()) > 0
+    p = {"w": torch.zeros(16)}
+    opt = TO.chain(TO.clip_by_global_norm(1.0), TO.add_noise(0.1, seed=2),
+                   TO.adam(1e-3, state_dtype=torch.bfloat16))
+    up, state = opt.update({"w": torch.ones(16)}, opt.init(p), p)
+    assert state[2]["mu"]["w"].dtype == torch.bfloat16
+    assert bool(torch.isfinite(TO.apply_updates(p, up)["w"]).all())
+
+
+def _noisy():
+    return TO.chain(TO.clip_by_global_norm(1.0), TO.add_noise(0.05, seed=7),
+                    TO.adam(1e-3))
+
+
+@pytest.mark.parametrize("method,sizes", [("fl", (24, 8)),
+                                          ("sflv3_ac", (16, 8))])
+def test_compiled_engine_runs_add_noise_bit_equal(method, sizes,
+                                                  monkeypatch):
+    """FL over hospitals of 3 and 1 batches (the compiled grid masks two
+    steps of the second) and SFLv3 (the second wraps around), 2 epochs:
+    the compiled run equals the stepwise one bit for bit, and every step
+    body drew at a new count (on the card each replay reads the advanced
+    count inside the graph)."""
     ad = cnn_adapter(build_densenet(DenseNetConfig(
         growth=4, blocks=(1, 1), stem_ch=8, cut_layer=1)))
-    noisy = lambda: TO.chain(TO.add_noise(0.1), TO.adam(1e-3))  # noqa: E731
-    st = make_strategy("fl", ad, noisy, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="add_noise"):
-        st.run(st.setup(0), _clients(), np.random.default_rng(0), 8, 1)
-    with pytest.raises(NotImplementedError, match="add_noise"):
-        st.run_epoch(st.setup(0), _clients(), np.random.default_rng(0), 8)
-    sw = make_strategy("fl", ad, noisy, 2, engine="stepwise", device="cpu")
-    _, logs = sw.run(sw.setup(0), _clients(), np.random.default_rng(0), 8, 1)
-    assert np.isfinite(logs[0].losses).all()
+    counts = {}
+    real = t_optimizers._normal
+
+    def recording(shape, key, device):
+        counts.setdefault(engine, []).append(int(key[1]))
+        return real(shape, key, device)
+    monkeypatch.setattr(t_optimizers, "_normal", recording)
+    out = {}
+    for engine in ("stepwise", "compiled"):
+        st = make_strategy(method, ad, _noisy, 2, engine=engine,
+                           device="cpu")
+        state, logs = st.run(st.setup(0), _clients(sizes),
+                             np.random.default_rng(0), 8, 2)
+        out[engine] = (state, logs, st)
+    (a, la, sa), (b, lb, sb) = out["stepwise"], out["compiled"]
+    assert [l.losses for l in la] == [l.losses for l in lb]
+    for c in range(2):
+        for x, y in zip(tree_leaves(sa.params_for_eval(a, c)),
+                        tree_leaves(sb.params_for_eval(b, c))):
+            assert torch.equal(x, y)
+    # the steps drew at counts 1, 2, ...: FL's local Adam starts fresh
+    # each round (counts 1-3 per hospital), SFLv3's clients and server run
+    # on (counts 1-4 over 2 epochs of 2 steps)
+    top = 3 if method == "fl" else 4
+    assert set(counts["stepwise"]) == set(range(1, top + 1))
+    assert set(counts["compiled"]) >= set(range(1, top + 1))
