@@ -202,6 +202,27 @@ Phases, in order; any failure exits nonzero before the last line:
      config in f32, card against CPU: logits, loss and the params after
      one Adam step; every full CONFIG through ``param_shapes`` (meta, no
      card memory) with its param count;
+ 16. placement over several devices (it also runs before phase 10),
+     DenseNet-121 at 224^2, 5 hospitals of 32, 16, 32, 16 and 32 images,
+     2 epochs on the compiled engine, cuDNN's deterministic algorithms:
+     (a) ``shard=True`` on one card
+     against ``shard=False`` on FL and SFLv3-AC (fused int8), params,
+     losses, scores and wire bytes bit-equal; (b) ``shard=True`` over four
+     virtual devices (the card four times: 8 hospitals, 3 phantoms)
+     against ``shard=False`` from the same start, for FL with DP-SGD (K5,
+     K6), SL-AM, SFLv2-AC, SFLv3-AC with cut noise (K4), SFLv1-AC and an
+     observed SFLv3-AC (K3): params, losses, scores and telemetry within
+     1e-5 (the bit-equal rows said so), epsilon and wire bytes equal,
+     every chunk program on its device and captured once per body, the
+     second run's device milliseconds (CUDA events) and wall beside the
+     unplaced run's, the peaks; (c) the same over the distinct cards when
+     the machine has several (a line says when it has not); (d) beside
+     them, in a process of its own, the dry run (``launch.dryrun``) of
+     SmolLM-135M's and Llama-4 Scout's ``train_4k`` at full width on the
+     single production mesh (a fake process group of 256): per-device
+     FLOPs, HBM bytes, collectives by kind, param, optimizer and live
+     bytes, the H100 roofline terms, and nothing allocated (the card's
+     allocated bytes unchanged, no op result holding memory);
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
      bf16 rows, ``unet_leaf`` entries and ``bare_ms``, K4 with
      ``one_hospital``, K1-K3 with their LM link rows; launches of every
@@ -4283,6 +4304,317 @@ def lm_train_path(dev, clients, table, profile=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: placement over several devices and the launch layer
+# ---------------------------------------------------------------------------
+
+# train images per hospital: uneven (2 or 1 batches of 16), so FedAvg's
+# weights, the masked steps and SFLv3's wrap-around matter; 5 hospitals on
+# 4 devices pad to 8 (3 phantoms)
+PLACE_IMAGES = (32, 16, 32, 16, 32)
+PLACE_EPOCHS = 2
+PLACE_BAR = 1e-5                 # the reference's placement bar
+# (label, method, privacy, observe): (b)'s runs, the split family over the
+# fused int8 link
+PLACE_ROWS = [("fl dp", "fl", PRIVATE_DP, False),
+              ("sl_am", "sl_am", None, False),
+              ("sflv2_ac", "sflv2_ac", None, False),
+              ("sflv3_ac cut noise", "sflv3_ac", dict(cut_noise_std=0.5),
+               False),
+              ("sflv1_ac", "sflv1_ac", None, False),
+              ("sflv3_ac observed", "sflv3_ac", None, True)]
+
+
+def place_run(method, clients, dev, shard, devices, privacy=None,
+              observe=False, start=None):
+    """Two epochs of one method on the compiled engine from seed 0 (or
+    ``start``), ``shard``ed over ``devices``, then the same two epochs
+    again from the same start (captured already: replays and the host's
+    copies only), timed with CUDA events and the host clock.  Returns the
+    strategy, the first run's state and logs, the transport, the second
+    run's device milliseconds and wall seconds, the peak memory of the
+    first and the launches of each kernel over both runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import optim as O
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.privacy import PrivacyConfig
+    from repro_torch.tree import tree_map
+    from repro_torch.wire import Transport
+
+    tr = Transport("int8", device=dev) if method != "fl" else None
+    strat = make_strategy(
+        method, small_adapter_full(), lambda: O.adam(1e-4), len(clients),
+        transport=tr, privacy=None if privacy is None
+        else PrivacyConfig(**privacy), device=dev, shard=shard,
+        devices=devices, observe=True if observe else None)
+    start = strat.setup(0) if start is None else start
+    data = [{k: v[:n] for k, v in c.train.items()}
+            for c, n in zip(clients, PLACE_IMAGES)]
+    kernels = path_kernels()
+    before = {n: k.launches for n, k in kernels.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, logs = strat.run(tree_map(torch.clone, start), data,
+                            np.random.default_rng(1), BATCH, PLACE_EPOCHS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    strat.run(tree_map(torch.clone, start), data, np.random.default_rng(1),
+              BATCH, PLACE_EPOCHS)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(strat=strat, start=start, state=state, logs=logs, tr=tr,
+                ms=e0.elapsed_time(e1), wall=wall, peak=peak,
+                launches={n: k.launches - before[n]
+                          for n, k in kernels.items()})
+
+
+_FULL_ADAPTER = []
+
+
+def small_adapter_full():
+    """DenseNet-121 at the paper's cut (LS), built once."""
+    if not _FULL_ADAPTER:
+        from repro_torch.configs.paper_models import DENSENET121_PAPER
+        from repro_torch.core.partition import cnn_adapter
+        from repro_torch.models.cnn import build_densenet
+        _FULL_ADAPTER.append(cnn_adapter(build_densenet(DENSENET121_PAPER)))
+    return _FULL_ADAPTER[0]
+
+
+def place_compare(label, a, b, clients, bar=PLACE_BAR):
+    """``b`` (placed) against ``a`` (unplaced): losses, every hospital's
+    params and ``scores_all`` within ``bar``, step counts, epsilon and wire
+    bytes exactly; returns whether params and losses were bit-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    n = len(clients)
+    losses_eq, worst_loss = True, 0.0
+    for la, lb in zip(a["logs"], b["logs"]):
+        if (la.steps, la.weights, la.client_steps) != (
+                lb.steps, lb.weights, lb.client_steps):
+            fail(f"{label}: step counts or loss weights differ")
+        d = np.abs(np.asarray(la.losses) - np.asarray(lb.losses))
+        worst_loss = max(worst_loss, float(d.max()) if d.size else 0.0)
+        losses_eq &= la.losses == lb.losses
+    params_eq, worst = True, 0.0
+    for i in range(n):
+        for x, y in zip(tree_leaves(a["strat"].params_for_eval(a["state"], i)),
+                        tree_leaves(b["strat"].params_for_eval(b["state"],
+                                                               i))):
+            y = y.to(x.device)
+            params_eq &= torch.equal(x, y)
+            worst = max(worst, (x - y).abs().max().item())
+    tests = [c.test for c in clients]
+    sa = a["strat"].scores_all(a["state"], tests, BATCH)
+    sb = b["strat"].scores_all(b["state"], tests, BATCH)
+    worst_score = max(float(np.abs(x - y).max()) for x, y in zip(sa, sb))
+    eps_a, eps_b = a["strat"].privacy_report(), b["strat"].privacy_report()
+    wire = ((a["tr"].steps, a["tr"].bytes_on_wire),
+            (b["tr"].steps, b["tr"].bytes_on_wire)) if a["tr"] else None
+    log(f"    {label}: params {'bit-equal' if params_eq else 'max |diff| '}"
+        f"{'' if params_eq else f'{worst:.3g}'}, losses "
+        f"{'bit-equal' if losses_eq else f'max |diff| {worst_loss:.3g}'}, "
+        f"scores max |diff| {worst_score:.3g} (bar {bar}); epsilon "
+        f"{[round(r['epsilon'], 6) for r in eps_b][:1] or '-'} "
+        f"{'equal' if eps_a == eps_b else 'DIFFERENT'}; wire "
+        f"{wire[1][1] if wire else '-'} "
+        f"{'equal' if not wire or wire[0] == wire[1] else 'DIFFERENT'}")
+    if max(worst, worst_loss, worst_score) > bar:
+        fail(f"{label}: placed run beyond {bar} of the unplaced one")
+    if eps_a != eps_b or (wire and wire[0] != wire[1]):
+        fail(f"{label}: epsilon or wire bytes differ when placed")
+    return params_eq and losses_eq
+
+
+def place_chunks(label, strat, devices):
+    """Each chunk program on its own device, its buffers there, captured
+    once per body it ran (the non-private SFLv3/v1 server too, on the
+    first device); returns the captures per chunk (the server's last)."""
+    progs = strat._programs
+    idx = sorted(key[0][1] for key in progs if key[0][0] != "sync_server")
+    if idx != list(range(len(devices))):
+        fail(f"{label}: chunk programs {idx} for {len(devices)} devices")
+    caps = []
+    for key, prog in sorted(progs.items(), key=lambda kv: (
+            kv[0][0][0] == "sync_server", kv[0][0][1])):
+        server = key[0][0] == "sync_server"
+        dev = devices[0 if server else key[0][1]]
+        name = "server" if server else f"chunk {key[0][1]}"
+        bufs = [*prog.batches.values(), prog.losses, prog.t]
+        if prog.device != dev or any(t.device != dev for t in bufs):
+            fail(f"{label}: {name} not on {dev}")
+        # a chunk of phantoms only has no step of the SL family to run
+        want = len(prog.bodies) if prog.calls else 0
+        if prog.captures != want:
+            fail(f"{label}: {name} captured {prog.captures} times for "
+                 f"{len(prog.bodies)} bodies, calls {prog.calls}")
+        caps.append(prog.captures)
+    return caps
+
+
+def place_rows(dev, clients, devices, tag):
+    """(b)/(c): every row of ``PLACE_ROWS`` placed over ``devices`` against
+    the unplaced run from the same start; returns the placed runs'
+    launches."""
+    launches = {}
+    for label, method, privacy, observe in PLACE_ROWS:
+        a = place_run(method, clients, dev, False, None, privacy, observe)
+        b = place_run(method, clients, dev, True, devices, privacy, observe,
+                      start=a["start"])
+        place = b["strat"].placement
+        if not place.enabled or place.c_pad != 8 and len(devices) == 4:
+            fail(f"{tag} {label}: placement {place}")
+        bit = place_compare(f"{tag} {label}", a, b, clients)
+        caps = place_chunks(f"{tag} {label}", b["strat"], devices)
+        if observe:
+            ra = a["strat"].last_run_telemetry
+            rb = b["strat"].last_run_telemetry
+            worst = 0.0
+            for x, y in zip(ra.rounds, rb.rounds):
+                for k in x.metrics:
+                    import numpy as np
+                    mx, my = np.asarray(x.metrics[k]), np.asarray(
+                        y.metrics[k])
+                    if mx.shape != my.shape:
+                        fail(f"{tag} {label}: metric {k} shapes "
+                             f"{mx.shape} / {my.shape}")
+                    if mx.size:
+                        worst = max(worst, float(np.nanmax(np.abs(
+                            mx - my))))
+            log(f"      telemetry: {len(rb.rounds)} rounds, keys "
+                f"{sorted(rb.rounds[0].metrics)}, max |diff| {worst:.3g}")
+            if worst > PLACE_BAR:
+                fail(f"{tag} {label}: telemetry beyond {PLACE_BAR}")
+        log(f"      c_pad {place.c_pad} ({place.n_pad} phantoms), captures "
+            f"per chunk {caps}; second run (replays and copies): "
+            f"{b['ms']:.1f} ms placed / {a['ms']:.1f} ms unplaced (CUDA "
+            f"events), wall {b['wall']:.3f} / {a['wall']:.3f} s; peak "
+            f"{b['peak'] / 2**30:.2f} / {a['peak'] / 2**30:.2f} GiB; "
+            f"launches placed {json.dumps(b['launches'])}"
+            f"{' (bit-equal)' if bit else ''}")
+        for k, n in b["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        del a, b
+    return launches
+
+
+# (d): the dry run's full-width combos, on the host beside (a)-(c)
+DRY_ARCHS = ("smollm-135m", "llama4-scout-17b-a16e")
+DRY_SCRIPT = """
+import json, sys
+import torch
+sys.path.insert(0, "src")
+from repro_torch.launch import dryrun as D
+for arch in {archs!r}:
+    before = torch.cuda.memory_allocated(0)
+    rec = D.run_combo(arch, "train_4k", False)
+    if rec["status"] == "ok":
+        rec["roofline"] = D.roofline_terms(rec, 256, "h100_sxm")
+    rec["cuda_allocated"] = [before, torch.cuda.memory_allocated(0)]
+    rec.pop("traceback", None)
+    print("DRY " + json.dumps(rec), flush=True)
+"""
+
+
+def start_dry_runs():
+    """Phase 16 (d) in a process of its own (its fake process group of 256
+    ranks stays out of this one): ``train_4k`` of each ``DRY_ARCHS`` on the
+    single production mesh, at full width."""
+    return subprocess.Popen(
+        [sys.executable, "-c", DRY_SCRIPT.format(archs=DRY_ARCHS)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_dry_runs(proc):
+    """Read (d)'s records: each ``ok``, nothing allocated (no op result
+    holding memory, the card's allocated bytes unchanged); print the
+    per-device costs and the H100 roofline terms."""
+    out, err = proc.communicate(timeout=600)
+    recs = [json.loads(line[4:]) for line in out.splitlines()
+            if line.startswith("DRY ")]
+    if proc.returncode or len(recs) != len(DRY_ARCHS):
+        fail(f"(d) the dry run exited {proc.returncode}: {err[-2000:]}")
+    for rec in recs:
+        if rec["status"] != "ok":
+            fail(f"(d) {rec['arch']}: {rec.get('error')}")
+        before, after = rec["cuda_allocated"]
+        roof = rec["roofline"]
+        log(f"  (d) dry run {rec['arch']} train_4k on (16, 16): per device "
+            f"{rec['hlo_flops']:.4g} FLOP, {rec['hlo_bytes']:.4g} HBM bytes "
+            f"(unfused), collectives {json.dumps(rec['collectives'])}; "
+            f"params {rec['param_bytes']}, optimizer {rec['opt_bytes']}, "
+            f"inputs {rec['input_bytes']}, peak live "
+            f"{rec['peak_live_bytes']} bytes; H100 roofline (s): compute "
+            f"{roof['t_compute']:.4g}, memory {roof['t_memory']:.4g}, "
+            f"collective {roof['t_collective']:.4g} ({roof['dominant']}); "
+            f"resharded {json.dumps(rec['resharded'])}; {rec['run_s']} s; "
+            f"card allocated bytes {before} -> {after}, results holding "
+            f"memory {rec['allocated_results']}")
+        if after != before or rec["allocated_results"]:
+            fail(f"(d) {rec['arch']}: the dry run allocated memory")
+
+
+def placement_path(dev, clients):
+    """Phase 16, under cuDNN's deterministic algorithms: (a) ``shard=True``
+    on one card against ``shard=False``, bit for bit; (b) the placed rows
+    over ``[card] * 4`` virtual devices; (c) over the distinct cards when
+    there are several; (d) the dry runs, started first in a process of
+    their own.  Returns the launches of (b) and (c) (K3-K6 must all
+    launch)."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dry = start_dry_runs()
+    try:
+        reset_launches()
+        for method in ("fl", "sflv3_ac"):
+            a = place_run(method, clients, dev, False, None)
+            b = place_run(method, clients, dev, True, [dev],
+                          start=a["start"])
+            if b["strat"].placement.enabled or b["strat"].placement.padded:
+                fail(f"(a) {method}: one card placed "
+                     f"{b['strat'].placement}")
+            if not place_compare(f"(a) {method} one card", a, b, clients,
+                                 0.0):
+                fail(f"(a) {method}: shard=True on one card is not "
+                     "bit-equal")
+        launches = {k: 0 for k in path_kernels()}
+        virtual = [dev] * 4
+        log(f"  (b) virtual devices {[str(d) for d in virtual]}")
+        for k, n in place_rows(dev, clients, virtual, "(b)").items():
+            launches[k] += n
+        count = torch.cuda.device_count()
+        if count >= 2:
+            cards = [torch.device("cuda", i) for i in range(min(count, 4))]
+            log(f"  (c) real devices {[str(d) for d in cards]}")
+            for k, n in place_rows(dev, clients, cards, "(c)").items():
+                launches[k] += n
+        else:
+            log(f"  (c) real devices: not run, this machine has {count} "
+                "CUDA device")
+        finish_dry_runs(dry)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    log(f"  launches in phase 16: {json.dumps(launches)}")
+    if not all(launches[k] for k in ("K3", "K4", "K5", "K6")):
+        fail(f"a kernel of the placed path never launched: {launches}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3,
@@ -4379,6 +4711,11 @@ def main():
           "the registry")
     for key, n in lm_train_path(dev, clients, table,
                                 args.profile).items():
+        launches[key] += n
+
+    phase("phase 16: placement over several devices and the launch layer, "
+          "DenseNet-121 at 224^2")
+    for key, n in placement_path(dev, clients).items():
         launches[key] += n
     del clients
 

@@ -6,10 +6,10 @@ U-shaped (NLS) cut, on the compiled engine (the default) or the stepwise
 one, in f32 or bf16, and with a ``PrivacyConfig``: DP-SGD on every
 method, cut-layer noise on the split family, secure aggregation on FL;
 with per-round ``participation`` (FL and the split family, compiled
-engine), on FL any registered ``aggregator``, and observed
-(``observe=``, ``repro_torch.obs``).  Every option still unported raises
-``NotImplementedError`` naming the ROADMAP item that ports it; the
-combinations the reference refuses raise its ``ValueError``.
+engine), on FL any registered ``aggregator``, observed (``observe=``,
+``repro_torch.obs``) and placed over several devices (``shard=True``,
+``core.placement``).  The combinations the reference refuses raise its
+``ValueError``.
 """
 
 from repro_torch.core.partition import cast_adapter
@@ -32,7 +32,7 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
                   transport=None, privacy=None, engine="compiled",
                   drop_remainder=True, shard=False, observe=None,
                   precision="fp32", participation=None, aggregator=None,
-                  device=None):
+                  device=None, devices=None):
     """method: centralized | fl | sl_{ac,am} | sflv{1,2,3}_{ac,am}.
 
     ``transport`` (``repro_torch.wire.Transport``) compresses the cut-layer
@@ -76,10 +76,18 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
     DP clip fraction and the per-round epsilon, computed inside the
     captured steps (``obs.telemetry``).  The split family refuses it
     together with ``participation``, as the reference does.
+
+    ``shard=True`` places the hospital axis of every compiled run over
+    ``devices`` (default: every visible CUDA device; the strategy's own
+    device on the CPU), ``core.placement``: a hospital count that does not
+    divide the device count is padded with zero-weight phantom hospitals,
+    each device's chunk of hospitals trains in its own captured programs,
+    and the cross-hospital reductions gather in hospital order
+    (``core/strategies/placed.py``).  Results equal ``shard=False``'s
+    (FL and SL/SFLv2 bit for bit, SFLv3/v1 within 1e-5); one device, and
+    the stepwise engine, place nothing.  A device may repeat
+    (``devices=[torch.device("cuda", 0)] * 4``: four chunks on one card).
     """
-    if shard:
-        raise NotImplementedError("shard=True is not ported yet: ROADMAP "
-                                  "M11 (placement)")
     if participation is not None and method == "centralized":
         raise ValueError("centralized pools all hospitals; there is no "
                          "per-round cohort to sample")
@@ -109,7 +117,7 @@ def make_strategy(method: str, adapter, opt_factory, n_clients,
                          f"{device}")
     use_full_fp32(device)
     kw = dict(privacy=privacy, engine=engine, drop_remainder=drop_remainder,
-              device=device, observe=observe)
+              device=device, observe=observe, shard=shard, devices=devices)
     if method == "centralized":
         return Centralized(adapter, opt_factory, n_clients, **kw)
     kw["participation"] = participation

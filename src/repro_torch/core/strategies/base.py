@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import types
 from typing import Callable
 
 import numpy as np
@@ -95,7 +96,8 @@ class Strategy:
     def __init__(self, adapter: SplitAdapter, opt_factory: Callable[[], Optimizer],
                  n_clients: int, device: torch.device, privacy=None,
                  engine: str = "compiled", drop_remainder: bool = True,
-                 participation=None, observe=None):
+                 participation=None, observe=None, shard: bool = False,
+                 devices=None):
         if engine not in ("stepwise", "compiled"):
             raise ValueError(f"unknown engine {engine!r}")
         self.participation = as_participation(participation)
@@ -108,6 +110,20 @@ class Strategy:
                 raise ValueError(
                     "participation= requires the compiled engine (the "
                     "stepwise oracle has no slot-packed hospital axis)")
+            if shard:
+                raise ValueError("participation= with shard= is not "
+                                 "supported (slot axis vs mesh padding)")
+        # pad-to-devices hospital-axis placement (the identity on one
+        # device; the stepwise parity oracle never pads or places)
+        from repro_torch.core.placement import Placement
+        self.shard = shard
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if device.type == "cuda" else [device])
+        self.placement = Placement.make(
+            n_clients, enabled=shard and engine == "compiled",
+            devices=devices)
         self.adapter = adapter
         self.opt_factory = opt_factory
         self.n_clients = n_clients
@@ -122,7 +138,7 @@ class Strategy:
         # telemetry spec, all captured into one memory pool (two programs
         # of a strategy never replay at once)
         self._programs: dict = {}
-        self._pool = None
+        self._pools: dict = {}          # chunk index -> GraphPool
         # observability (repro_torch.obs): the metric-tap spec, the span
         # tracer and the dispatch counters, all inert when unused
         self.observe = T.as_telemetry(observe)
@@ -321,27 +337,44 @@ class Strategy:
             return ()
         return tel.step_keys(dp=self._dp, cut=self._has_cut)
 
-    def _graph_pool(self):
-        """The ``engine.GraphPool`` every program of this strategy warms up
-        and captures in (None on the CPU): programs never replay at once,
-        so an observed program reuses the memory of the unobserved one's
-        graphs instead of holding a second pool beside it."""
-        if self._pool is None and self.device.type == "cuda":
+    def _graph_pool(self, chunk=None):
+        """The ``engine.GraphPool`` every program of this strategy (of a
+        placed run, of its ``chunk``: one pool and stream per chunk index,
+        on the chunk's device) warms up and captures in (None on the CPU):
+        programs never replay at once, so an observed program reuses the
+        memory of the unobserved one's graphs instead of holding a second
+        pool beside it."""
+        dev = self.device if chunk is None else chunk.device
+        k = 0 if chunk is None else chunk.index
+        if k not in self._pools and dev.type == "cuda":
             from repro_torch.core.strategies.engine import GraphPool
-            self._pool = GraphPool(self.device)
-        return self._pool
+            self._pools[k] = GraphPool(dev)
+        return self._pools.get(k)
 
-    def _dispatch(self, prog, calls_before, per_step):
-        """Book one compiled run of ``prog``: its replays as dispatches,
-        one run call, and the record ``obs.profile.graph_cost`` reads
-        (the program, its replays in this run, the hospitals one step
-        trains, the peak memory)."""
-        calls = {k: n - calls_before.get(k, 0) for k, n in prog.calls.items()}
+    @property
+    def _placed(self) -> bool:
+        """A compiled run goes through ``placed.py``: the placement splits
+        the hospital axis over devices, or pads it with phantoms."""
+        return self.placement.enabled or self.placement.padded
+
+    def _dispatch(self, progs, calls_before, per_step):
+        """Book one compiled run of ``progs`` (a program, or a placed
+        run's list of chunk programs with a list of ``calls_before``):
+        their replays as dispatches, one run call, and the record
+        ``obs.profile.graph_cost`` reads (the first program, the replays
+        of all in this run, the hospitals one step trains, the peak
+        memory)."""
+        if not isinstance(progs, list):
+            progs, calls_before = [progs], [calls_before]
+        calls = {}
+        for prog, before in zip(progs, calls_before):
+            for k, n in prog.calls.items():
+                calls[k] = calls.get(k, 0) + n - before.get(k, 0)
         self._count_dispatch(sum(calls.values()))
         self._run_calls += 1
         peak = (torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == "cuda" else None)
-        self._last_run = dict(program=prog, replays=calls,
+        self._last_run = dict(program=progs[0], replays=calls,
                               per_step=per_step, peak_bytes=peak)
 
     def _host_metrics(self, mets: list) -> dict:
@@ -399,25 +432,27 @@ class Strategy:
         return self._spec_cache[key]
 
     def _draws(self, step: int, hospital: int, batch: dict, batch_size: int,
-               dp_spec) -> dict:
+               dp_spec, device=None) -> dict:
         """One hospital's noise for one step (``privacy.dpsgd.
         hospital_draws``), seeded by the running step index ``step``: the
         cut noise drawn at ``batch_size`` rows and cut to ``batch``'s (a
         short remainder batch takes the first rows), the DP noise of
-        ``dp_spec``'s shapes (the tree the DP step differentiates)."""
+        ``dp_spec``'s shapes (the tree the DP step differentiates), on
+        ``device`` (a placed chunk's; the strategy's by default)."""
         d = hospital_draws(self.privacy, step, hospital,
                            self._cut_specs(batch, batch_size), dp_spec,
-                           self.device)
+                           device or self.device)
         rows = len(next(iter(batch.values())))
         return d if rows == batch_size else first_rows(d, rows)
 
-    def _program_draw(self, packed, dp_spec, hospital=None):
+    def _program_draw(self, packed, dp_spec, hospital=None, device=None):
         """The ``draw(key_index, row)`` a keyed compiled program fills its
         noise buffers with before each step (None unkeyed): ``_draws`` for
         the hospital the host row of the step table names (``row[1]``,
-        the GLOBAL hospital id, also under participation: a hospital's
-        draws never depend on who else was sampled), or ``hospital``, at
-        the packed batch length."""
+        the GLOBAL hospital id, also under participation and placement: a
+        hospital's draws never depend on who else was sampled or where it
+        lives), or ``hospital``, at the packed batch length, on
+        ``device``."""
         if not self._keyed:
             return None
         example = {k: v[0, 0] for k, v in packed.batches.items()}
@@ -425,7 +460,7 @@ class Strategy:
         def draw(i, row):
             return self._draws(i, int(row[1]) if hospital is None
                                else hospital, example, packed.batch_size,
-                               dp_spec)
+                               dp_spec, device)
         return draw
 
     def _dp_account(self, client_idx, n_samples, batch_size, count=1,
@@ -476,7 +511,11 @@ class Strategy:
 
     def scores_all(self, state, datas: list, batch_size=60,
                    chunk_batches=None):
-        """Per-sample scores of every hospital, each by its own segments."""
+        """Per-sample scores of every hospital, each by its own segments
+        (under an enabled placement on its chunk's device)."""
+        if self.placement.enabled and len(datas) == self.n_clients:
+            from repro_torch.core.strategies.placed import scores_all
+            return scores_all(self, state, datas, batch_size, chunk_batches)
         return [self.scores(state, i, d, batch_size, chunk_batches)
                 for i, d in enumerate(datas)]
 
@@ -526,6 +565,16 @@ def _grad_trees(loss, *trees):
     """d loss / d every leaf of each tree, as trees of the same shape."""
     leaves = [tree_leaves(t) for t in trees]
     grads = iter(torch.autograd.grad(loss, [l for ls in leaves for l in ls]))
+    return [tree_map(lambda _: next(grads), t) for t in trees]
+
+
+def _grad_trees_from(out, grad_out, *trees):
+    """The backward of ``out`` seeded with ``grad_out`` (a tree of its
+    shapes): the gradient at every leaf of each tree, as trees."""
+    leaves = [tree_leaves(t) for t in trees]
+    grads = iter(torch.autograd.grad(tree_leaves(out),
+                                     [l for ls in leaves for l in ls],
+                                     grad_outputs=tree_leaves(grad_out)))
     return [tree_map(lambda _: next(grads), t) for t in trees]
 
 
@@ -738,7 +787,7 @@ def _stacked_moments(moms):
 
 def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
                   opt_server: Optimizer, n_clients: int, transport=None,
-                  privacy=None, telemetry=None):
+                  privacy=None, telemetry=None, phases=False):
     """SplitFedv3 step (paper Algorithm 1, batch-synchronous form; the
     reference's ``base.sflv3_step_fn`` without padding rows).
 
@@ -778,6 +827,11 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     shared averaged server gradient (under DP each hospital's own private
     joint gradient), the update norms with the shared server update, and
     under DP each hospital's clip fraction.
+
+    ``phases=True`` returns the step cut into the phases a placed run
+    (``core/strategies/placed.py``) replays on its devices, with the
+    tensors that cross between them: ``_placed_phases`` without DP-SGD,
+    ``_placed_dp_phases`` with it.
     """
     boundary = transport.boundary if transport is not None else None
     noised = None
@@ -788,14 +842,18 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     dp = privacy is not None and privacy.dp_enabled
     taps = _Taps(telemetry, dp, cut=True)
 
-    def update(clients, server, c_opts, s_opt, gcs, gs, losses, met,
-               server_grads):
+    def client_update(clients, c_opts, gcs):
         new_clients, new_c_opts, cus = [], [], []
         for cp, gc, co in zip(clients, gcs, c_opts):
             cu, co = opt_client.update(gc, co, cp)
             new_clients.append(apply_updates(cp, cu))
             new_c_opts.append(co)
             cus.append(cu)
+        return new_clients, new_c_opts, cus
+
+    def update(clients, server, c_opts, s_opt, gcs, gs, losses, met,
+               server_grads):
+        new_clients, new_c_opts, cus = client_update(clients, c_opts, gcs)
         su, s_opt = opt_server.update(gs, s_opt, server)
         out = (new_clients, apply_updates(server, su), new_c_opts, s_opt,
                losses.detach())
@@ -810,7 +868,7 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
                        sq[s + k:2 * s + k] + sq[-1])
         return out + (met,)
 
-    def step_fn(clients, server, c_opts, s_opt, batches, draws=None):
+    def grads_joint(clients, server, batches, draws):
         cps = [detached(cp, True) for cp in clients]
         sp = detached(server, True)
         joint = {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
@@ -839,11 +897,16 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
                               for o, b in zip(outs, batches)])
         *gcs, gs = _grad_trees(losses.sum() / n_clients, *cps, sp)
         gcs = [tree_map(lambda g: g * n_clients, gc) for gc in gcs]
-        return update(clients, server, c_opts, s_opt, gcs, gs, losses, met,
-                      [gs])
+        return gcs, gs, losses, met, [gs]
+
+    def step_fn(clients, server, c_opts, s_opt, batches, draws=None):
+        return update(clients, server, c_opts, s_opt,
+                      *grads_joint(clients, server, batches, draws))
 
     if not dp:
-        return step_fn
+        return (_placed_phases(adapter, n_clients, boundary, noised, taps,
+                               opt_server, client_update)
+                if phases else step_fn)
 
     def loss_fn(both, b, z):
         sink = []
@@ -858,7 +921,7 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
     vg = dp_value_and_grad(loss_fn, privacy, has_aux=taps.cut,
                            with_norms=taps.clip)
 
-    def dp_step(clients, server, c_opts, s_opt, batches, draws=None):
+    def grads_dp(clients, server, batches, draws):
         losses, gcs, gss, moms, clips = [], [], [], [], []
         for cp, b, d in zip(clients, batches, draws):
             # the hospital's cut noise covers its whole batch and enters
@@ -873,19 +936,179 @@ def sflv3_step_fn(adapter: SplitAdapter, opt_client: Optimizer,
             if taps.clip:
                 clips.append(T.clip_fraction(out[2]["norms"],
                                              privacy.clip_norm))
-        gs = gss[0]
-        for g in gss[1:]:
-            gs = tree_map(torch.add, gs, g)
-        gs = tree_map(lambda x: x / n_clients, gs)
         met = {}
         if taps.cut:
             met.update(_stacked_moments(moms))
         if taps.clip:
             met["clip_frac"] = torch.stack(clips)
-        return update(clients, server, c_opts, s_opt, gcs, gs,
-                      torch.stack(losses), met, gss)
+        return gcs, torch.stack(losses), met, gss
+
+    if phases:
+        return _placed_dp_phases(grads_dp, client_update, opt_server, taps)
+
+    def dp_step(clients, server, c_opts, s_opt, batches, draws=None):
+        gcs, losses, met, gss = grads_dp(clients, server, batches, draws)
+        return update(clients, server, c_opts, s_opt, gcs,
+                      server_mean(gss, n_clients), losses, met, gss)
 
     return dp_step
+
+
+def server_mean(gss, n_clients: int):
+    """The private SFLv3 server gradient: the hospitals' own gradients
+    added in hospital order, over ``n_clients``."""
+    gs = gss[0]
+    for g in gss[1:]:
+        gs = tree_map(torch.add, gs, g)
+    return tree_map(lambda x: x / n_clients, gs)
+
+
+def _placed_dp_phases(grads_dp, client_update, opt_server, taps):
+    """Private SFLv3 in a placed chunk (``core/strategies/placed.py``): each
+    hospital's gradient of {client, server} is its own (per-example clip
+    and noise), so a chunk holds a replica of the server and steps its
+    hospitals' clients, and the server gradient is ``server_mean`` of every
+    REAL hospital's gradient, gathered in hospital order between two
+    bodies:
+
+      * ``grads(clients, server, c_opts, batches, draws) -> (clients,
+        c_opts, gss, losses, parts)``: the chunk's clients updated, each
+        hospital's server gradient ``gss``, and the per-hospital halves of
+        the norm taps (``parts``);
+      * ``server_step(server, s_opt, gs, parts) -> (server, s_opt, met)``:
+        the summed ``gs`` applied to the replica, the taps completed."""
+    def grads(clients, server, c_opts, batches, draws=None):
+        gcs, losses, met, gss = grads_dp(clients, server, batches, draws)
+        new_clients, new_c_opts, cus = client_update(clients, c_opts, gcs)
+        if taps.norms:
+            s = len(gcs)
+            sq = T.sq_norms(*gcs, *gss, *cus)
+            met["sq_grad"] = sq[:s] + sq[s:2 * s]
+            met["sq_update"] = sq[2 * s:]
+        return new_clients, new_c_opts, gss, losses.detach(), met
+
+    def server_step(server, s_opt, gs, parts):
+        su, s_opt = opt_server.update(gs, s_opt, server)
+        met = {k: v for k, v in parts.items() if not k.startswith("sq_")}
+        if taps.norms:
+            _norm_taps(met, parts["sq_grad"],
+                       parts["sq_update"] + T.sq_norms(su)[0])
+        return apply_updates(server, su), s_opt, met
+    return types.SimpleNamespace(grads=grads, server_step=server_step)
+
+
+def _placed_phases(adapter, n_clients, boundary, noised, taps, opt_server,
+                   client_update):
+    """Non-private SFLv3 with the cut crossing devices (a placed run,
+    ``core/strategies/placed.py``): each chunk's device runs its
+    hospitals' client segments, ONE server on the first device runs the
+    middle on every real hospital's rows in hospital order, exactly the
+    joint pass of ``sflv3_step_fn``, so the step computes what the
+    unplaced one does.  The activations and their gradients cross between
+    the bodies (tensors in hospital order; a chunk's phantom rows ride
+    along its own bodies and never reach the server):
+
+      * ``front(clients, batches, draws) -> (h, met)``: the chunk's fronts
+        and the link (crossing 0), no autograd; the cut statistics;
+      * ``server(server, s_opt, h, batches) -> (server, s_opt, dh,
+        losses, sq)`` (LS): the middle and the loss on the joint rows, its
+        gradient (``dh`` for the fronts), Adam's update; ``sq`` the
+        server's squared gradient and update norms;
+      * ``server_fwd(server, h, batches) -> o`` (NLS): the middle alone;
+      * ``tail(clients, o, batches, draws) -> (tail grads, do, losses)``
+        (NLS): the link back (crossing 1), each hospital's tail and loss;
+      * ``server_bwd(server, s_opt, h, do, batches) -> (server, s_opt, dh,
+        sq)`` (NLS): the middle again under autograd, its gradient from
+        ``do``, Adam's update;
+      * ``back(clients, c_opts, batches, draws, dh, tail_grads, sq) ->
+        (clients, c_opts, met)``: the fronts and the link again under
+        autograd, their gradient from ``dh``, the clients' updates, the
+        norm taps completed with the server's ``sq``.
+
+    Client gradients are rescaled by ``n_clients`` as in the joint step."""
+    def hook(draws, i):
+        return crossings(boundary, noised, None if noised is None else [
+            _cat([d["cut"][i] for d in draws])])
+
+    def fronts(cps, batches, draws):
+        fs = [adapter.apply_seg("front", cp["front"], adapter.inputs(b), b,
+                                True) for cp, b in zip(cps, batches)]
+        h, link = _cat(fs), hook(draws, 0)
+        return (h if link is None else link(h)), [
+            tree_leaves(f)[0].shape[0] for f in fs]
+
+    @torch.no_grad()
+    def front(clients, batches, draws=None):
+        h, sizes = fronts(clients, batches, draws)
+        met = {}
+        if taps.cut:
+            met.update(_stacked_moments([T.payload_moments(part)
+                                         for part in _split(h, sizes)]))
+        return h, met
+
+    def middle(sp, h, batches):
+        joint = {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
+        return adapter.apply_seg("middle", sp, h, joint, True)
+
+    def finish(server, s_opt, gs):
+        su, s_opt = opt_server.update(gs, s_opt, server)
+        sq = T.sq_norms(gs, su) if taps.norms else None
+        return apply_updates(server, su), s_opt, sq
+
+    def server(server, s_opt, h, batches):
+        sp, hh = detached(server, True), detached(h, True)
+        sizes = [len(next(iter(b.values()))) for b in batches]
+        losses = torch.stack([adapter.loss_from_output(o, b) for o, b in zip(
+            _split(middle(sp, hh, batches), sizes), batches)])
+        gs, dh = _grad_trees(losses.sum() / n_clients, sp, hh)
+        new, s_opt, sq = finish(server, s_opt, gs)
+        return new, s_opt, dh, losses.detach(), sq
+
+    @torch.no_grad()
+    def server_fwd(server, h, batches):
+        return middle(server, h, batches)
+
+    def tail(clients, o, batches, draws=None):
+        oo = detached(o, True)
+        tails = [detached(cp["tail"], True) for cp in clients]
+        link = hook(draws, 1)
+        x = oo if link is None else link(oo)
+        sizes = [len(next(iter(b.values()))) for b in batches]
+        losses = torch.stack([
+            adapter.loss_from_output(adapter.apply_seg("tail", t, part, b,
+                                                       True), b)
+            for t, part, b in zip(tails, _split(x, sizes), batches)])
+        *gts, do = _grad_trees(losses.sum() / n_clients, *tails, oo)
+        return ([tree_map(lambda g: g * n_clients, g) for g in gts], do,
+                losses.detach())
+
+    def server_bwd(server, s_opt, h, do, batches):
+        sp = detached(server, True)
+        hh = detached(h, True)
+        gs, dh = _grad_trees_from(middle(sp, hh, batches), do, sp, hh)
+        new, s_opt, sq = finish(server, s_opt, gs)
+        return new, s_opt, dh, sq
+
+    def back(clients, c_opts, batches, draws, dh, tail_grads=None,
+             sq_server=None):
+        cps = [detached(cp, True) for cp in clients]
+        h, _ = fronts(cps, batches, draws)
+        gfs = _grad_trees_from(h, dh, *[cp["front"] for cp in cps])
+        gcs = [{"front": tree_map(lambda g: g * n_clients, gf)}
+               for gf in gfs]
+        if tail_grads is not None:
+            for gc, gt in zip(gcs, tail_grads):
+                gc["tail"] = gt
+        new_clients, new_c_opts, cus = client_update(clients, c_opts, gcs)
+        met = {}
+        if taps.norms:
+            s = len(gcs)
+            sq = T.sq_norms(*gcs, *cus)
+            _norm_taps(met, sq[:s] + sq_server[0], sq[s:] + sq_server[1])
+        return new_clients, new_c_opts, met
+    return types.SimpleNamespace(front=front, server=server,
+                                 server_fwd=server_fwd, tail=tail,
+                                 server_bwd=server_bwd, back=back)
 
 
 __all__ = ["Strategy", "EpochLog", "np_batches", "full_step_fn",

@@ -113,6 +113,10 @@ class PackedEpoch:
         return self.mask.shape[1]
 
     @property
+    def total_steps(self) -> int:
+        return int(sum(self.n_batches))
+
+    @property
     def shapes(self) -> tuple:
         """(key, per-example shape, dtype) of every batch array."""
         return tuple((k, tuple(v.shape[3:]), str(v.dtype))
@@ -130,10 +134,15 @@ def _client_batch_count(n: int, batch_size: int,
 
 def pack_epoch(client_data: list, batch_size: int,
                rng: np.random.Generator | None,
-               drop_remainder: bool = True) -> PackedEpoch:
+               drop_remainder: bool = True,
+               pad_clients: int = 0) -> PackedEpoch:
     """Shuffle + pack every hospital's epoch (mirrors ``np_batches``): the
     shuffles consume ``rng`` in hospital order, exactly the draws the
-    stepwise engine makes, so both engines train on the same batches."""
+    stepwise engine makes, so both engines train on the same batches.
+
+    ``pad_clients`` appends that many *phantom hospitals* (zero samples,
+    all-zero batches, all-invalid masks) to reach a device multiple for
+    ``core.placement``; the real rows come from the same rng stream."""
     n_batches, n_samples, step_examples, order = [], [], [], []
     for d in client_data:
         n = len(next(iter(d.values())))
@@ -147,8 +156,11 @@ def pack_epoch(client_data: list, batch_size: int,
         n_samples.append(n)
         step_examples.append([batch_size] * nb_full
                              + ([rem] if nb > nb_full else []))
+    n_batches += [0] * pad_clients
+    n_samples += [0] * pad_clients
+    step_examples += [[] for _ in range(pad_clients)]
     NB = max(n_batches, default=0)
-    C = len(client_data)
+    C = len(client_data) + pad_clients
 
     batches = {}
     for k in client_data[0]:
@@ -184,14 +196,15 @@ def empty_run(client_data, batch_size: int,
 
 
 def pack_run(client_data, batch_size: int, rng, n_epochs: int,
-             drop_remainder: bool = True):
+             drop_remainder: bool = True, pad_clients: int = 0):
     """Pack ``n_epochs`` epochs into ``[n_epochs, C, NB, B, ...]`` numpy
     arrays, consuming ``rng`` exactly as a loop of per-epoch packs would
     (epoch-major, hospital order inside each epoch).  Batch counts, masks
     and weights are the same every epoch (the data sizes do not change);
-    the returned ``PackedEpoch`` is the first epoch's."""
-    packs = [pack_epoch(client_data, batch_size, rng, drop_remainder)
-             for _ in range(n_epochs)]
+    the returned ``PackedEpoch`` is the first epoch's.  ``pad_clients``
+    phantom hospitals (``pack_epoch``) ride along every epoch."""
+    packs = [pack_epoch(client_data, batch_size, rng, drop_remainder,
+                        pad_clients) for _ in range(n_epochs)]
     batches = {k: np.stack([p.batches[k] for p in packs])
                for k in packs[0].batches}
     return batches, packs[0]
@@ -356,8 +369,16 @@ def pack_participation_run(client_data, batch_size: int, rng,
 # capture and replay
 # ---------------------------------------------------------------------------
 
-def _clone(tree):
-    return tree_map(torch.clone, tree)
+def _clone(tree, device=None):
+    """A copy of every leaf (on ``device``, when given)."""
+    if device is None:
+        return tree_map(torch.clone, tree)
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def _on(tree, device):
+    """Every leaf on ``device`` (no copy where it lies there already)."""
+    return tree_map(lambda t: t.to(device), tree)
 
 
 class GraphPool:
@@ -535,7 +556,9 @@ class _PackedProgram(Program):
     ``[C, NB]`` grid flattened to ``C * NB`` rows), remainder weights, the
     step table (on the device, and its host copy ``rows``), the losses of
     one epoch, the noise buffers of a private step (``draws``) and the
-    strategy's step function (``step_fn``).
+    strategy's step function (``step_fn``); a placed run's program
+    (``chunk``, a ``core.placement.Chunk``) lives on its chunk's device
+    and captures in that chunk's ``GraphPool``.
 
     An observed program (``telemetry``, an ``obs.Telemetry``) steps the
     strategy's observed step function and writes each step's metric taps
@@ -545,9 +568,9 @@ class _PackedProgram(Program):
     one ``GraphPool`` (``Strategy._graph_pool``)."""
 
     def __init__(self, strategy, packed: PackedEpoch, table, loss_shape,
-                 telemetry=None, n_slots=None):
-        super().__init__(strategy.device)
-        self.share = strategy._graph_pool()
+                 telemetry=None, n_slots=None, chunk=None):
+        super().__init__(strategy.device if chunk is None else chunk.device)
+        self.share = strategy._graph_pool(chunk)
         self.step_fn = strategy._observed_step(telemetry, n_slots)
         dev = self.device
         keys = strategy.adapter.batch_keys or tuple(packed.batches)
@@ -721,15 +744,22 @@ class FLProgram(_PackedProgram):
     Observed under ``update_cosine``, the round (either) writes each
     slot's update cosine (``obs.telemetry.update_cosine`` of the locals,
     the old global and the aggregate) into ``cos`` before the global
-    params are overwritten."""
+    params are overwritten.
+
+    A placed chunk's program (``chunk``, a ``core.placement.Chunk``) holds
+    that chunk's hospitals (``gids``, their global ids) on its device and
+    has no round body: ``core/strategies/placed.py`` gathers every
+    chunk's ``locals`` for the round."""
 
     bodies = ("step", "round")
 
     def __init__(self, strategy, packed: PackedEpoch, state,
-                 in_graph_round: bool = True, telemetry=None):
+                 in_graph_round: bool = True, telemetry=None, gids=None,
+                 chunk=None):
         C, NB = packed.mask.shape
-        super().__init__(strategy, packed, fl_rows(packed.mask, range(C)),
-                         (C * NB,), telemetry)
+        super().__init__(strategy, packed, fl_rows(
+            packed.mask, range(C) if gids is None else gids), (C * NB,),
+            telemetry, chunk=chunk)
         self.cos = (torch.zeros((C,), device=self.device)
                     if telemetry is not None and telemetry.update_cosine
                     else None)
@@ -742,8 +772,8 @@ class FLProgram(_PackedProgram):
                                   device=dev)
         self.staleness = torch.zeros((C,), device=dev)
         self.slot_gid = torch.zeros((C,), dtype=torch.int64, device=dev)
-        self.glob = _clone(state["params"])
-        self.local = _clone(state["params"])
+        self.glob = _clone(state["params"], dev)
+        self.local = _clone(state["params"], dev)
         self.fresh = opt.init(self.glob)
         self.local_opt = opt.init(self.glob)
         self.locals = stack_trees([self.glob] * C)
@@ -801,11 +831,15 @@ class FLProgram(_PackedProgram):
         state["params"] = _clone(self.glob)
 
 
-def interleaved_rows(sched, nb_max: int, gids) -> list:
+def interleaved_rows(sched, nb_max: int, gids, state_rows=None) -> list:
     """SL/SFLv2's step table in ``sched`` order: each step's (flat batch
-    row, global hospital), ``sched`` holding (slot, batch) pairs and
-    ``gids`` the slots' global hospitals."""
-    return [(int(c) * nb_max + int(b), int(gids[int(c)])) for c, b in sched]
+    row, global hospital, row of the stacked client state), ``sched``
+    holding (slot, batch) pairs, ``gids`` the slots' global hospitals and
+    ``state_rows`` their rows in the program's stacked client trees (the
+    global ids by default; a placed chunk's own rows)."""
+    rows = gids if state_rows is None else state_rows
+    return [(int(c) * nb_max + int(b), int(gids[int(c)]),
+             int(rows[int(c)])) for c, b in sched]
 
 
 class InterleavedProgram(_PackedProgram):
@@ -818,25 +852,30 @@ class InterleavedProgram(_PackedProgram):
     takes the plain mean of the round's sampled hospitals' client trees,
     ``slot_gid``).  The batch buffers are one round's slots wide and the
     step table changes every round (``load_round``): ``capacity`` is the
-    longest a round can be, the full-N schedule's length."""
+    longest a round can be, the full-N schedule's length.  A placed
+    chunk's program (``chunk``) stacks its own hospitals' client trees
+    (``state`` is the chunk's, row 2 of the table indexes it) and holds a
+    copy of the server, which ``core/strategies/placed.py`` moves from
+    chunk to chunk as the schedule does."""
 
     def __init__(self, strategy, packed: PackedEpoch, state, capacity: int,
-                 sync: bool, telemetry=None):
-        super().__init__(strategy, packed, np.zeros((capacity, 2)),
-                         (capacity,), telemetry)
+                 sync: bool, telemetry=None, chunk=None):
+        super().__init__(strategy, packed, np.zeros((capacity, 3)),
+                         (capacity,), telemetry, chunk=chunk)
         if sync:
             self.bodies = ("step", "round")
+        dev = self.device
         self.slot_gid = torch.zeros((packed.mask.shape[0],),
-                                    dtype=torch.int64, device=self.device)
-        self.clients = stack_trees(state["clients"])
-        self.c_opts = stack_trees(state["c_opts"])
-        self.server = _clone(state["server"])
-        self.s_opt = _clone(state["s_opt"])
+                                    dtype=torch.int64, device=dev)
+        self.clients = _on(stack_trees(state["clients"]), dev)
+        self.c_opts = _on(stack_trees(state["c_opts"]), dev)
+        self.server = _clone(state["server"], dev)
+        self.s_opt = _clone(state["s_opt"], dev)
 
     def _step(self):
         row = self.row()
         batch, w = self.batch(row[0:1])
-        c = row[1:2]
+        c = row[2:3]
         cp, sp, co, so, loss, *met = self.step_fn(
             tree_take(self.clients, c), self.server,
             tree_take(self.c_opts, c), self.s_opt, batch, w, self.draws)
@@ -876,9 +915,10 @@ class InterleavedProgram(_PackedProgram):
 
 def sync_rows(n_batches, nb_max: int, steps: int) -> list:
     """SFLv3/v1's step table: row ``s`` holds each slot's flat batch row
-    of step ``s`` (a hospital short of batches wraps around)."""
-    return [[c * nb_max + s % nb for c, nb in enumerate(n_batches)]
-            for s in range(steps)]
+    of step ``s`` (a hospital short of batches wraps around; a phantom
+    hospital, with none, reads its all-zero first row)."""
+    return [[c * nb_max + (s % nb if nb else 0)
+             for c, nb in enumerate(n_batches)] for s in range(steps)]
 
 
 class SyncProgram(_PackedProgram):
@@ -904,20 +944,21 @@ class SyncProgram(_PackedProgram):
     bodies = ("begin", "step", "round")
 
     def __init__(self, strategy, packed: PackedEpoch, state, sync: bool,
-                 capacity: int, telemetry=None):
+                 capacity: int, telemetry=None, chunk=None):
         S = packed.mask.shape[0]
         super().__init__(strategy, packed, np.zeros((capacity, S)),
-                         (capacity, S), telemetry, S)
+                         (capacity, S), telemetry, S, chunk=chunk)
         self.n_slots, self.sync = S, sync
-        self.slot_gid = torch.zeros((S,), dtype=torch.int64,
-                                    device=self.device)
-        self.all_clients = stack_trees(state["clients"])
-        self.all_c_opts = stack_trees(state["c_opts"])
-        self.count = [c.clone() for c in opt_counts(state["c_opts"][0])]
-        self.clients = [_clone(state["clients"][0]) for _ in range(S)]
-        self.c_opts = [_clone(state["c_opts"][0]) for _ in range(S)]
-        self.server = _clone(state["server"])
-        self.s_opt = _clone(state["s_opt"])
+        dev = self.device
+        self.slot_gid = torch.zeros((S,), dtype=torch.int64, device=dev)
+        self.all_clients = _on(stack_trees(state["clients"]), dev)
+        self.all_c_opts = _on(stack_trees(state["c_opts"]), dev)
+        self.count = [c.to(dev, copy=True)
+                      for c in opt_counts(state["c_opts"][0])]
+        self.clients = [_clone(state["clients"][0], dev) for _ in range(S)]
+        self.c_opts = [_clone(state["c_opts"][0], dev) for _ in range(S)]
+        self.server = _clone(state["server"], dev)
+        self.s_opt = _clone(state["s_opt"], dev)
 
     def _begin(self):
         for j, (cp, co) in enumerate(zip(self.clients, self.c_opts)):

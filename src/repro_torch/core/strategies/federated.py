@@ -145,25 +145,11 @@ class FedAvg(Strategy):
                             base0 + 1 + e * T_N + prefix[g]
                             + np.arange(nbs[g], dtype=np.int64))
             self._key_step += n_epochs * T_N
-        first = pack.epoch(0, batches)
-        prog = ENG.program_for(self, "fl", pack, lambda t: ENG.FLProgram(
-            self, first, state, self._agg.scan_compatible, t))
-        prog.load(state)
-
-        def begin_round(e):
-            prog.load_round(ENG.fl_rows(pack.mask[e], pack.slot_gid[e]),
-                            None if pack.ex_weights is None
-                            else pack.ex_weights[e], agg_w=pack.agg_w[e],
-                            staleness=pack.staleness[e],
-                            slot_gid=pack.slot_gid[e])
-        calls = dict(prog.calls)
-        with self._span("dispatch"):
-            losses, met = ENG.to_host(*prog.run(
-                batches, self._program_draw(first, prog.glob),
-                key_idx.reshape(n_epochs, -1), self._end_round(prog),
-                begin_round))
-        self._dispatch(prog, calls, 1)
-        prog.store(state)
+        if self._placed:
+            from repro_torch.core.strategies.placed import run_fl
+            losses, met = run_fl(self, state, batches, pack, key_idx)
+        else:
+            losses, met = self._run_program(state, batches, pack, key_idx)
         logs = []
         for e in range(n_epochs):
             flat, loss_w = ENG.client_major_log(losses[e],
@@ -202,6 +188,30 @@ class FedAvg(Strategy):
                 self._dp_account(g, pack.n_samples[g], batch_size,
                                  count=cnt, q_scale=q_scale)
         return state, logs
+
+    def _run_program(self, state, batches, pack, key_idx):
+        """The run on one ``engine.FLProgram``: the ``[E, S * NB]`` losses
+        and the metrics, read back."""
+        first = pack.epoch(0, batches)
+        prog = ENG.program_for(self, "fl", pack, lambda t: ENG.FLProgram(
+            self, first, state, self._agg.scan_compatible, t))
+        prog.load(state)
+
+        def begin_round(e):
+            prog.load_round(ENG.fl_rows(pack.mask[e], pack.slot_gid[e]),
+                            None if pack.ex_weights is None
+                            else pack.ex_weights[e], agg_w=pack.agg_w[e],
+                            staleness=pack.staleness[e],
+                            slot_gid=pack.slot_gid[e])
+        calls = dict(prog.calls)
+        with self._span("dispatch"):
+            out = ENG.to_host(*prog.run(
+                batches, self._program_draw(first, prog.glob),
+                key_idx.reshape(len(key_idx), -1), self._end_round(prog),
+                begin_round))
+        self._dispatch(prog, calls, 1)
+        prog.store(state)
+        return out
 
     def _end_round(self, prog):
         """The host round a rule that cannot run in a graph (secure

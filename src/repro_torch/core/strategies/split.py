@@ -175,25 +175,31 @@ class SplitLearning(Strategy):
                                           for _s, _b, p in rows]
             self._key_step += n_epochs * S_N
         first = pack.epoch(0, batches)
-        prog = ENG.program_for(
-            self, "interleaved", pack, lambda t: ENG.InterleavedProgram(
-                self, first, state, S_N, self._syncs_clients, t))
-        prog.load(state)
+        if self._placed:
+            from repro_torch.core.strategies.placed import run_interleaved
+            losses, met = run_interleaved(self, state, batches, pack,
+                                          key_idx, full,
+                                          self._syncs_clients)
+        else:
+            prog = ENG.program_for(
+                self, "interleaved", pack, lambda t: ENG.InterleavedProgram(
+                    self, first, state, S_N, self._syncs_clients, t))
+            prog.load(state)
 
-        def begin_round(e):
-            prog.load_round(
-                ENG.interleaved_rows([(s, b) for s, b, _p in rounds[e]],
-                                     pack.nb_max, pack.slot_gid[e]),
-                None if pack.ex_weights is None else pack.ex_weights[e],
-                slot_gid=pack.slot_gid[e])
-        draw = self._program_draw(first, {"c": state["clients"][0],
-                                          "s": state["server"]})
-        calls = dict(prog.calls)
-        with self._span("dispatch"):
-            losses, met = ENG.to_host(*prog.run(batches, draw, key_idx, None,
-                                                begin_round))
-        self._dispatch(prog, calls, 1)
-        prog.store(state)
+            def begin_round(e):
+                prog.load_round(
+                    ENG.interleaved_rows([(s, b) for s, b, _p in rounds[e]],
+                                         pack.nb_max, pack.slot_gid[e]),
+                    None if pack.ex_weights is None
+                    else pack.ex_weights[e], slot_gid=pack.slot_gid[e])
+            draw = self._program_draw(first, {"c": state["clients"][0],
+                                              "s": state["server"]})
+            calls = dict(prog.calls)
+            with self._span("dispatch"):
+                losses, met = ENG.to_host(*prog.run(batches, draw, key_idx,
+                                                    None, begin_round))
+            self._dispatch(prog, calls, 1)
+            prog.store(state)
         logs = []
         for e, rows in enumerate(rounds):
             gid = pack.slot_gid[e]

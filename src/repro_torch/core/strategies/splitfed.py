@@ -80,6 +80,16 @@ class SplitFedV3(SplitLearning):
                              n_slots or self.n_clients, self.transport,
                              self.privacy, telemetry)
 
+    def _phases(self, telemetry):
+        """The step of a placed run cut into its phases
+        (``sflv3_step_fn(phases=True)``), built once per spec."""
+        key = ("phases", telemetry)
+        if key not in self._obs_steps:
+            self._obs_steps[key] = sflv3_step_fn(
+                self.adapter, self._opt_c, self._opt_s, self.n_clients,
+                self.transport, self.privacy, telemetry, phases=True)
+        return self._obs_steps[key]
+
     def _sync_round_telemetry(self, tel, losses, metrics):
         """Reduce one epoch's ``[S, C]`` synchronous-step taps."""
         losses = np.asarray(losses, np.float64)
@@ -91,18 +101,19 @@ class SplitFedV3(SplitLearning):
              for k, v in metrics.items()}, self.n_clients)[0]
 
     def _step_draws(self, step: int, clients, server, batch,
-                    hospitals=None) -> list:
+                    hospitals=None, device=None) -> list:
         """One step's per-hospital noise (``privacy.dpsgd.step_draws``) for
         ``hospitals`` (global ids; default every hospital), one per client
         tree of ``clients``: cut noise of every crossing's shapes on
         ``batch`` (one hospital's; batches are never short here), DP noise
-        of ``{"c": client tree, "s": server}``'s."""
+        of ``{"c": client tree, "s": server}``'s, on ``device`` (a placed
+        chunk's; the strategy's by default)."""
         rows = len(next(iter(batch.values())))
         return step_draws(self.privacy, step,
                           range(self.n_clients) if hospitals is None
                           else hospitals, self._cut_specs(batch, rows),
                           [{"c": cp, "s": server} for cp in clients],
-                          self.device)
+                          device or self.device)
 
     def _check_batches(self, n_batches, batch_size):
         empty = [c for c, nb in enumerate(n_batches) if not nb]
@@ -180,28 +191,13 @@ class SplitFedV3(SplitLearning):
                                         + np.arange(real[e]))
             self._key_step += n_epochs * NB_N
         first = pack.epoch(0, batches)
-        prog = ENG.program_for(self, "sync", pack, lambda t: ENG.SyncProgram(
-            self, first, state, self._syncs_clients, NB_N, t))
-        prog.load(state)
-        gids = []
-
-        def begin_round(e):
-            gids[:] = pack.slot_gid[e]
-            prog.load_round(ENG.sync_rows([nbs[g] for g in gids], NB_N,
-                                          real[e]), slot_gid=gids)
-        draw = None
-        if self._keyed:
-            example = {k: v[0, 0] for k, v in first.batches.items()}
-
-            def draw(i, row):
-                return self._step_draws(i, prog.clients, prog.server,
-                                        example, gids)
-        calls = dict(prog.calls)
-        with self._span("dispatch"):
-            losses, met = ENG.to_host(*prog.run(batches, draw, key_idx, None,
-                                                begin_round))
-        self._dispatch(prog, calls, pack.n_slots)
-        prog.store(state)
+        if self._placed:
+            from repro_torch.core.strategies.placed import run_sync
+            losses, met = run_sync(self, state, batches, pack, key_idx,
+                                   NB_N, self._syncs_clients)
+        else:
+            losses, met = self._run_program(state, batches, pack, key_idx,
+                                            real)
         logs = []
         for e in range(n_epochs):
             sampled = set(int(g) for g in pack.slot_gid[e])
@@ -237,6 +233,35 @@ class SplitFedV3(SplitLearning):
                               for g in range(pack.n_global)],
                     client_set=ids)
         return state, logs
+
+    def _run_program(self, state, batches, pack, key_idx, real):
+        """The run on one ``engine.SyncProgram``: the ``[E, NB_N, S]``
+        losses and the metrics, read back."""
+        first = pack.epoch(0, batches)
+        nbs, NB_N = pack.n_batches, pack.nb_max
+        prog = ENG.program_for(self, "sync", pack, lambda t: ENG.SyncProgram(
+            self, first, state, self._syncs_clients, NB_N, t))
+        prog.load(state)
+        gids = []
+
+        def begin_round(e):
+            gids[:] = pack.slot_gid[e]
+            prog.load_round(ENG.sync_rows([nbs[g] for g in gids], NB_N,
+                                          real[e]), slot_gid=gids)
+        draw = None
+        if self._keyed:
+            example = {k: v[0, 0] for k, v in first.batches.items()}
+
+            def draw(i, row):
+                return self._step_draws(i, prog.clients, prog.server,
+                                        example, gids)
+        calls = dict(prog.calls)
+        with self._span("dispatch"):
+            out = ENG.to_host(*prog.run(batches, draw, key_idx, None,
+                                        begin_round))
+        self._dispatch(prog, calls, pack.n_slots)
+        prog.store(state)
+        return out
 
 
 class SplitFedV1(SplitFedV3):

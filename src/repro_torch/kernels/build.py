@@ -14,11 +14,13 @@ raise.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -207,10 +209,29 @@ def check_rows(x: torch.Tensor, dtypes, name: str) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+_SHAPES = threading.local()
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Inside, a ``meta`` tensor takes a wrapper's plain version, which on
+    ``meta`` computes the output's shape alone and launches nothing: the
+    dry run's mode (``launch.dryrun``).  Outside, ``meta`` raises as any
+    device without a kernel does."""
+    prev = getattr(_SHAPES, "on", False)
+    _SHAPES.on = True
+    try:
+        yield
+    finally:
+        _SHAPES.on = prev
+
+
 def on_cpu(x: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor (plain version), False for a CUDA tensor
-    (kernel); any other device raises."""
-    if x.device.type == "cpu":
+    (kernel); any other device raises, ``meta`` but under
+    ``shapes_only``."""
+    if x.device.type == "cpu" or (x.device.type == "meta"
+                                  and getattr(_SHAPES, "on", False)):
         return True
     if x.device.type == "cuda":
         return False

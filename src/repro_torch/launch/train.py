@@ -19,10 +19,10 @@ change the capacity drops, and a shared block held by the fronts, which
 differs per hospital.  Both give what the reference's ``vmap`` over
 hospitals gives.
 
-``make_plain_train_step`` is the centralized baseline, and
-``param_shapes`` gives a model's param shapes without allocating (the
-reference's ``get_axes_tree`` without the logical-axes tree, which waits
-for the mesh launcher).
+``make_plain_train_step`` is the centralized baseline; ``param_shapes``
+gives a model's param shapes without allocating, and ``get_axes_tree``
+those shapes with their logical-axes tree (``launch/mesh.py`` maps it to
+a mesh).
 """
 
 from __future__ import annotations
@@ -152,3 +152,21 @@ def param_shapes(model):
     and dtype, nothing drawn or allocated (a full config of a trillion
     params included)."""
     return model.init_params(None, "meta")
+
+
+def get_axes_tree(model, n_clients: int | None = None):
+    """``(param shapes on meta, logical-axes tree)`` without allocating,
+    the reference's ``get_axes_tree``: of ``init_params``' tree, or with
+    ``n_clients`` of ``init_sflv3_params``' (the fronts stacked on a
+    leading ``"clients"`` axis, the middle)."""
+    shapes, axes = param_shapes(model), model.init_axes()
+    if n_clients is None:
+        return shapes, axes
+
+    def lead(a):
+        return (("clients",) + a if isinstance(a, tuple)
+                else {k: lead(v) for k, v in a.items()})
+    fronts = tree_map(lambda t: t.new_empty((n_clients, *t.shape)),
+                      shapes["front"])
+    return ({"fronts": fronts, "middle": shapes["middle"]},
+            {"fronts": lead(axes["front"]), "middle": axes["middle"]})

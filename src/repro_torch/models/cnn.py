@@ -72,6 +72,17 @@ class CNNModel:
                            for i in range(lo, hi)}
         return params
 
+    def init_axes(self):
+        """The logical-axes tree of ``init_params``' params (the
+        reference's ``init`` returns it second): each unit's params are
+        group norms, (separable) convolutions and the classifier's bias
+        dense layer, told apart by their keys; names follow the port's
+        OIHW convolution layout."""
+        shapes = self.init_params(None, torch.device("meta"))
+        return {seg: {nm: {k: _leaf_axes(v) for k, v in unit.items()}
+                      for nm, unit in p.items()}
+                for seg, p in shapes.items()}
+
     def apply_segment(self, seg_params, seg: str, x, train=False):
         lo, hi = dict(zip(self.seg_names, self.seg_bounds))[seg]
         h = to_nchw(x)
@@ -84,6 +95,19 @@ class CNNModel:
         for seg in self.seg_names:
             x = self.apply_segment(params[seg], seg, x, train)
         return x
+
+
+def _leaf_axes(p: dict):
+    """One CNN layer's axes from its param dict (see ``init_axes``)."""
+    if set(p) == {"dw", "pw"}:
+        return L.sepconv_axes()
+    if set(p) == {"w", "b"}:
+        return L.bias_dense_axes(("chan", "classes"))
+    if set(p) == {"w"}:
+        return L.conv_axes()
+    if set(p) == {"scale", "bias"}:
+        return L.groupnorm_axes()
+    raise KeyError(f"unknown CNN layer params {sorted(p)}")
 
 
 def bce_terms(logits, labels):

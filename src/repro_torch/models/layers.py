@@ -369,3 +369,49 @@ def embedding_init(gen, vocab, d_model, device):
 def embedding_apply(p, ids, compute_dtype=None):
     out = p["table"][ids]
     return out.to(compute_dtype) if compute_dtype else out
+
+
+# ---------------------------------------------------------------------------
+# logical axes: one name (or None) per dim of each leaf, the trees the
+# reference's ``*_init`` return beside the params; ``launch/mesh.py``'s
+# rule table maps them to mesh axes.  A leaf's names follow the port's own
+# layout (convolutions are OIHW where the reference's are HWIO).
+# ---------------------------------------------------------------------------
+
+def dense_axes(axes=("in", "out")):
+    return {"w": tuple(axes)}
+
+
+def bias_dense_axes(axes=("in", "out")):
+    return {"w": tuple(axes), "b": (axes[-1],)}
+
+
+def rmsnorm_axes():
+    return {"scale": ("embed",)}
+
+
+def groupnorm_axes():
+    return {"scale": ("chan",), "bias": ("chan",)}
+
+
+def conv_axes():
+    return {"w": ("chan", "chan_in", None, None)}
+
+
+def sepconv_axes():
+    return {"dw": ("chan", None, None, None),
+            "pw": ("chan", "chan_in", None, None)}
+
+
+def attention_axes():
+    return {"wq": ("embed", "heads_flat"), "wk": ("embed", "kv_flat"),
+            "wv": ("embed", "kv_flat"), "wo": ("heads_flat", "embed")}
+
+
+def swiglu_axes():
+    return {"wi": ("embed", "ff"), "wg": ("embed", "ff"),
+            "wo": ("ff", "embed")}
+
+
+def embedding_axes():
+    return {"table": ("vocab", "embed")}

@@ -65,6 +65,18 @@ def mamba_init(gen, cfg: MambaConfig, device):
     }
 
 
+def mamba_axes(cfg: MambaConfig):
+    """``mamba_init``'s logical axes."""
+    return {"in_proj": ("embed", "inner_proj"),
+            "conv_w": (None, "inner_proj"),
+            "conv_b": ("inner_proj",),
+            "dt_bias": ("heads",),
+            "A_log": ("heads",),
+            "D": ("heads",),
+            "norm_scale": ("inner",),
+            "out_proj": ("inner", "embed")}
+
+
 def _segsum(log_a):
     """log_a: (..., Q).  Returns (..., Q, Q) with S[i,j] = sum_{j<m<=i}
     log_a[m] for j<=i, -inf above the diagonal."""

@@ -50,6 +50,17 @@ def moe_init(gen, cfg: MoEConfig, device):
     return p
 
 
+def moe_axes(cfg: MoEConfig):
+    """``moe_init``'s logical axes."""
+    a = {"router": ("embed", "experts_r"),
+         "wi": ("experts", "embed", "ff"),
+         "wg": ("experts", "embed", "ff"),
+         "wo": ("experts", "ff", "embed")}
+    if cfg.n_shared_experts:
+        a["shared"] = L.swiglu_axes()
+    return a
+
+
 def capacity(chunk_tokens: int, cfg: MoEConfig) -> int:
     cap = int(math.ceil(chunk_tokens * cfg.top_k / cfg.n_experts
                         * cfg.capacity_factor))

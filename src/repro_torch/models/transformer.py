@@ -206,6 +206,24 @@ def _mamba_block_apply(p, cfg, x, positions, cache, use_pallas=False):
     return x + h, new_cache, None
 
 
+def _dense_block_axes(cfg: ModelConfig):
+    return {"ln1": L.rmsnorm_axes(), "attn": L.attention_axes(),
+            "ln2": L.rmsnorm_axes(), "mlp": L.swiglu_axes()}
+
+
+def _moe_block_axes(cfg: ModelConfig):
+    return {"ln1": L.rmsnorm_axes(), "attn": L.attention_axes(),
+            "ln2": L.rmsnorm_axes(), "moe": MOE.moe_axes(cfg.moe_config())}
+
+
+def _mamba_block_axes(cfg: ModelConfig):
+    return {"ln": L.rmsnorm_axes(),
+            "mamba": M.mamba_axes(cfg.mamba_config())}
+
+
+_BLOCK_AXES = {"dense": _dense_block_axes, "moe": _moe_block_axes,
+               "mamba": _mamba_block_axes, "shared": _dense_block_axes}
+
 # a block returns (x, new_cache, aux): aux is None where the kind has no
 # auxiliary loss (the reference's f32 zero)
 _BLOCK_INIT = {"dense": _dense_block_init, "moe": _moe_block_init,
@@ -254,6 +272,18 @@ def _run_init(gen, spec: RunSpec, cfg: ModelConfig, device):
         return (torch.stack(leaves) if isinstance(leaves[0], torch.Tensor)
                 else {k: stack(*(l[k] for l in leaves)) for k in leaves[0]})
     return stack(*layers)
+
+
+def _run_axes(spec: RunSpec, cfg: ModelConfig):
+    """A run's axes: its block's, each led by the stacked ``"layers"``
+    dim; None for a ``shared`` run."""
+    if spec.kind == "shared":
+        return None
+
+    def lead(a):
+        return (("layers",) + a if isinstance(a, tuple)
+                else {k: lead(v) for k, v in a.items()})
+    return lead(_BLOCK_AXES[spec.kind](cfg))
 
 
 def _run_apply(run_p, shared_p, spec: RunSpec, cfg: ModelConfig, x,
@@ -334,6 +364,25 @@ def _segment_init(gen, seg: SegmentDef, cfg: ModelConfig, device):
     if seg.has_head:
         p["head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab, device)
     return p
+
+
+def _segment_axes(seg: SegmentDef, cfg: ModelConfig):
+    """``_segment_init``'s logical axes, key for key."""
+    a = {}
+    if seg.has_embed:
+        a["embed"] = L.embedding_axes()
+    if seg.has_frontend:
+        a["projector"] = L.dense_axes(("frontend", "embed"))
+    if seg.has_shared:
+        a["shared_block"] = _dense_block_axes(cfg)
+    for spec in seg.runs:
+        if spec.kind != "shared":
+            a[f"run_{spec.run_id}"] = _run_axes(spec, cfg)
+    if seg.has_final_norm:
+        a["final_norm"] = L.rmsnorm_axes()
+    if seg.has_head:
+        a["head"] = L.dense_axes(("embed", "vocab"))
+    return a
 
 
 def _segment_apply(p, seg: SegmentDef, cfg: ModelConfig, x, ctx):
@@ -420,18 +469,28 @@ class TransformerLM:
         default).  On ``device="meta"`` nothing is drawn or allocated and
         ``gen`` may be None: the params' shapes alone
         (``launch.train.param_shapes``).  The reference's ``init`` also
-        returns a logical-axes tree for its launcher, which is not ported
-        yet."""
+        returns the logical-axes tree: here ``init_axes``."""
         device = (torch.device("meta") if str(device) == "meta"
                   else resolve_device(device))
         return {seg.name: _segment_init(gen, seg, self.cfg, device)
                 for seg in self.segments
                 if segments is None or seg.name in segments}
 
+    def init_axes(self, segments=None):
+        """The logical-axes tree of ``init_params``' params (the same
+        structure, one tuple of axis names per leaf): what the reference's
+        ``init`` returns second, read by ``launch/mesh.py``."""
+        return {seg.name: _segment_axes(seg, self.cfg)
+                for seg in self.segments
+                if segments is None or seg.name in segments}
+
     # ---- caches -----------------------------------------------------------
     def cache_init(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None):
-        device = resolve_device(device)
+        """Every segment's decode caches; on ``device="meta"`` their
+        shapes alone (``launch.specs.cache_specs``)."""
+        device = (torch.device("meta") if str(device) == "meta"
+                  else resolve_device(device))
         return {seg.name: {f"cache_{s.run_id}": _run_cache_init(
                     s, self.cfg, batch, max_len, dtype, device)
                     for s in seg.runs}

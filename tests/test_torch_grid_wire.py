@@ -133,10 +133,11 @@ def test_batch_synchronous_methods_refuse_short_batches(method):
     ("fl", False, dict(privacy=dict(cut_noise_std=0.5)), ValueError),
     ("sl_am", False, dict(privacy=dict(secagg=True)), ValueError),
     # privacy on SFLv2 and under NLS is ported now (M8), participation
-    # (M9) and observe= (M10): these three cases keep their ids and check
-    # the options that still raise on those private paths (the split
-    # family takes fixed-size participation only, and is never observed
-    # under participation: the reference's ValueErrors)
+    # (M9), observe= (M10) and shard= (M11): these three cases keep their
+    # ids and check the options that still raise on those private paths
+    # (the split family takes fixed-size participation only, is never
+    # observed under participation, and is never placed under it: the
+    # reference's ValueErrors)
     pytest.param("sflv2_ac", False, dict(
         privacy=dict(noise_multiplier=1.0, clip_norm=1.0),
         participation=dict(q=0.5)), ValueError, id="sflv2_ac-False-kw3-M8"),
@@ -145,8 +146,8 @@ def test_batch_synchronous_methods_refuse_short_batches(method):
                                         participation=dict(k=2)),
                  ValueError, id="sflv3_ac-True-kw4-M8"),
     pytest.param("sflv1_ac", True, dict(
-        privacy=dict(noise_multiplier=1.0, clip_norm=1.0), shard=True),
-        "M11", id="sflv1_ac-True-kw5-M8"),
+        privacy=dict(noise_multiplier=1.0, clip_norm=1.0), shard=True,
+        participation=dict(k=2)), ValueError, id="sflv1_ac-True-kw5-M8"),
     ("sflv4_ac", False, {}, ValueError),
 ])
 def test_make_strategy_refuses_what_the_grid_does_not_run(method, nls, kw,
@@ -161,8 +162,6 @@ def test_make_strategy_refuses_what_the_grid_does_not_run(method, nls, kw,
         from repro_torch.core.participation import Participation
         kw["participation"] = Participation(n_global=5,
                                             **kw["participation"])
-    exc, match = (NotImplementedError, err) if isinstance(err, str) \
-        else (err, None)
-    with pytest.raises(exc, match=match):
+    with pytest.raises(err):
         make_strategy(method, ta, lambda: TO.adam(LR), 5, device="cpu",
                       **kw)

@@ -236,8 +236,18 @@ def test_telemetry_flag_subsets(clients, adapter_pair, engine):
         "clip_frac",)
 
 
-def test_shard_still_raises(adapter_pair):
+def test_shard_observes_as_unplaced(adapter_pair, clients):
+    """``shard=True`` with ``observe=True`` on one device places nothing:
+    the run and its telemetry are the unplaced run's, bit for bit."""
     _, ta = adapter_pair
-    with pytest.raises(NotImplementedError, match="M11"):
-        make_strategy("fl", ta, lambda: TO.adam(LR), 3, device="cpu",
-                      shard=True, observe=True)
+    a = _port_run("fl", ta, clients, "compiled", True)
+    st = make_strategy("fl", ta, lambda: TO.adam(LR), 3, device="cpu",
+                       shard=True, observe=True)
+    assert not st.placement.enabled and not st.placement.padded
+    state, _ = st.run(st.setup(0), [c.train for c in clients],
+                      np.random.default_rng(1), BATCH, EPOCHS)
+    assert all(torch.equal(x, y) for x, y in zip(
+        a["leaves"], tree_leaves(st.params_for_eval(state, 0))))
+    for ra, rb in zip(a["rt"].rounds, st.last_run_telemetry.rounds):
+        for k in ra.metrics:
+            np.testing.assert_array_equal(ra.metrics[k], rb.metrics[k])

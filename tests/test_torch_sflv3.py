@@ -251,15 +251,16 @@ def test_port_setup_has_the_reference_layout(runs):
 
 
 # precision="bf16" (M4), engine="compiled" (M6), privacy on the whole grid
-# (M8), participation and the aggregation rules (M9) and observe= (M10)
-# are ported now: their cases keep their ids and check what holds on those
-# paths (an option that builds, expect None; the reference's ValueError, a
-# message; or an option that still raises, the ROADMAP item it names)
+# (M8), participation and the aggregation rules (M9), observe= (M10) and
+# shard= (M11) are ported now: their cases keep their ids and check what
+# holds on those paths (an option that builds, expect None; or the
+# reference's ValueError, a message; shard= with participation= is one)
 @pytest.mark.parametrize("kw, expect", [
     pytest.param(dict(precision="bf16", method="fl",
                       aggregator="trimmed_mean"), None, id="kw0-M4"),
     pytest.param(dict(observe=True), None, id="kw1-M10"),
-    pytest.param(dict(shard=True), "M11", id="kw2-M11"),
+    pytest.param(dict(shard=True, participation=dict(k=2)),
+                 "shard= is not supported", id="kw2-M11"),
     pytest.param(dict(participation=dict(q=0.5)),
                  "fixed-size participation only", id="kw3-M9"),
     pytest.param(dict(engine="compiled", method="sflv2_ac",
@@ -292,9 +293,6 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, expect):
         assert (st.observe is not None) == ("observe" in kw)
         if "aggregator" in kw:
             assert st._agg.name == kw["aggregator"]
-    elif expect.startswith("M"):
-        with pytest.raises(NotImplementedError, match=expect):
-            build()
     else:
         with pytest.raises(ValueError, match=expect):
             build()
