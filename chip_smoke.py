@@ -44,7 +44,10 @@ Phases, in order; any failure exits nonzero before the last line:
      steps of centralized, FL, SL-AC/AM, SFLv2 and SFLv1 (LS and NLS) on
      DenseNet-mini and of SL-AM and SFLv3 (LS and NLS) on the U-Net-mini
      under the same bars; and run SmolLM's and Mamba2's SMOKE configs in
-     f32 on the card and the CPU (scoring logits, loss, greedy tokens);
+     f32 on the card and the CPU (scoring logits, loss, greedy tokens),
+     then the greedy tokens of the Zamba2, Kimi-K2 (MoE) and InternVL2
+     (frontend) SMOKEs: the card's from the captured decode step (one
+     capture, 7 replays), each equal to the CPU's eager tokens;
   5. the main path: SplitFedv3 on DenseNet-121 at 224^2, 5 synthetic
      hospitals, batch 16 per hospital, over ``Transport("int8")`` fused
      (K3) and unfused (K1, K2), then ``val_loss`` and
@@ -60,8 +63,17 @@ Phases, in order; any failure exits nonzero before the last line:
      Mamba2-130M score 4 prompts of 2048 tokens with ``apply`` and
      ``loss`` (use_pallas: K7 30 or K8 24 launches per forward), then over
      the int8 cut link at layer 4 (K3 once more), each against the same
-     call with use_pallas=False; then ``greedy_generate`` 32 tokens after
-     4 prompts of 256 over the caches (no kernel), tokens per second;
+     call with use_pallas=False; then 32 greedy tokens after 4 prompts
+     of 256 over the caches (no kernel) through the captured decode step
+     (``captured_decode_step``: one CUDA graph a model, replayed) and
+     through the eager ``make_decode_step`` loop from the same prompt
+     pass: tokens equal, each step's logits bit-equal (else within
+     ``LOGIT_BARS``, the largest difference printed), one program with
+     one capture, new tokens per second both ways (``greedy_generate``
+     against the eager loop, the prefill included); the same for
+     Zamba2-7B at published width with its depth cut 81 -> 12
+     (``hybrid_attn_every`` 6 kept: the shared block applied twice, on
+     two caches);
   8. the paper's Table-2 grid at full width: every method on DenseNet-121
      at 224^2 (5 hospitals x 2 batches of 16; LS, and NLS for SL-AM,
      SFLv2 and SFLv3), then SFLv3 and SL-AM on the paper's U-Net at 768^2
@@ -223,6 +235,13 @@ Phases, in order; any failure exits nonzero before the last line:
      FLOPs, HBM bytes, collectives by kind, param, optimizer and live
      bytes, the H100 roofline terms, and nothing allocated (the card's
      allocated bytes unchanged, no op result holding memory);
+ 17. the port's six reference examples (``examples/<name>_torch.py``:
+     quickstart, federated_cxr, compressed_splitfed, private_splitfed,
+     train_and_serve, serve_decode) through their ``main`` on the card at
+     the reference's own sizes (it also runs before phase 10): their
+     printed results, every loss finite and the non-private ones falling,
+     train_and_serve's own assertions, serve_decode's tokens well formed
+     and each model's decode step captured once;
  10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
      bf16 rows, ``unet_leaf`` entries and ``bare_ms``, K4 with
      ``one_hospital``, K1-K3 with their LM link rows; launches of every
@@ -283,6 +302,11 @@ LM_ATTN = (LM_BATCH, 9, 3, LM_SEQ, 64)      # SmolLM-135M: B, H, KV, S, D
 LM_SSD = (LM_BATCH, LM_SEQ // 128, 128, 24, 64, 1, 128)  # Mamba2-130M:
                                             # b, nc, q, h, p, g, n
 GEN_PROMPT, GEN_NEW = 256, 32               # greedy_generate, 4 prompts
+# Zamba2-7B's generation in phase 7: published width, 81 layers cut to 12
+# (hybrid_attn_every 6 kept: the shared block applied twice, two caches)
+ZAMBA_DEPTH = 12
+# the decode step's other kinds held card against CPU in phase 4
+GEN_SMALL = ("zamba2-7b", "kimi-k2-1t-a32b", "internvl2-76b")
 # K7 in bf16 at LM_ATTN: the largest ||out - ref|| / ||ref|| over rows
 K7_ROW_REL = 2e-2
 
@@ -3483,19 +3507,46 @@ def lm_tokens(vocab, seq, device):
         lm_clients(0, vocab, LM_BATCH, 1, seq))).to(device)
 
 
+def small_generation(model, params, device):
+    """8 greedy tokens after LM_BATCH prompts of 16 in f32 on ``device``
+    (on the card each a replay of the model's captured decode step, on
+    the CPU its body run eagerly): (tokens on the CPU, the device's decode
+    program)."""
+    import torch
+
+    from repro_torch.serving.engine import decode_programs, greedy_generate
+    from repro_torch.tree import tree_map
+    p = tree_map(lambda t: t.to(device), params)
+    prompt = lm_tokens(model.cfg.vocab_size, 16, device)
+    gen = greedy_generate(model, p, prompt, max_new=8, max_len=24,
+                          cache_dtype=torch.float32)
+    (prog,) = [q for q in decode_programs(model)
+               if q.device.type == torch_type(device)]
+    return gen.cpu(), prog
+
+
+def graph_line(prog) -> str:
+    return (f"{prog.captures} capture, {prog.calls.get('step', 0)} replays"
+            f" of its step")
+
+
 def lm_small_against_cpu(dev):
     """SmolLM's and Mamba2's SMOKE configs in f32, on the card (K7, K8) and
     on the CPU (their plain versions) from the same params: the scoring
     logits within 5e-5 of their largest magnitude and the losses within
     1e-5 (the CPU tests hold 1e-5 between XLA and ATen on one CPU; cuBLAS
-    sums in other tile orders), and equal greedy tokens."""
+    sums in other tile orders), and equal greedy tokens, the card's from
+    the captured decode step (one capture, 7 replays); then the same
+    greedy tokens of the decode step's other kinds (``GEN_SMALL``: the
+    Zamba2 hybrid's shared-block caches, Kimi-K2's MoE, InternVL2's
+    frontend model on text)."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import mamba2_130m, smollm_135m
+    from repro_torch.configs.registry import REGISTRY
     from repro_torch.models.transformer import TransformerLM
-    from repro_torch.serving.engine import greedy_generate
     from repro_torch.tree import tree_map
 
     kernels = lm_kernels()
@@ -3511,19 +3562,32 @@ def lm_small_against_cpu(dev):
             logits, _, _ = model.apply(p, toks[:, :-1], use_pallas=True)
             loss = float(model.loss(p, {"tokens": toks}, train=False,
                                     use_pallas=True))
-            gen = greedy_generate(model, p, toks[:, :16], max_new=8,
-                                  max_len=24, cache_dtype=torch.float32)
-            out[torch_type(device)] = (logits.cpu(), loss, gen.cpu(), {
-                k: v.launches - before[k] for k, v in kernels.items()})
-        (lc, fc, gc, _), (lg, fg, gg, n) = out["cpu"], out["cuda"]
+            gen, prog = small_generation(model, params, device)
+            out[torch_type(device)] = (logits.cpu(), loss, gen, {
+                k: v.launches - before[k] for k, v in kernels.items()}, prog)
+        (lc, fc, gc, _, _), (lg, fg, gg, n, prog) = out["cpu"], out["cuda"]
         dl = max_err(lg, lc)
         scale = float(lc.abs().max())
         log(f"  {cfg.name} f32 at {LM_BATCH} x 64: |logits card - cpu| {dl:.3g} "
             f"(bar {5e-5 * scale:.3g}), losses {fg:.7f} / {fc:.7f}, greedy "
-            f"tokens equal {torch.equal(gg, gc)}, launches on the card {n}")
+            f"tokens equal {torch.equal(gg, gc)} (card: {graph_line(prog)}), "
+            f"launches on the card {n}")
         if not (dl <= 5e-5 * scale and abs(fg - fc) <= 1e-5
-                and torch.equal(gg, gc)):
+                and torch.equal(gg, gc) and prog.captures == 1
+                and prog.calls == {"step": 7}):
             fail(f"the card's {cfg.name} disagrees with the CPU's")
+    for arch in GEN_SMALL:
+        cfg = dataclasses.replace(REGISTRY[arch].smoke,
+                                  compute_dtype=torch.float32)
+        model = TransformerLM.build(cfg)
+        params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+        gc, _ = small_generation(model, params, torch.device("cpu"))
+        gg, prog = small_generation(model, params, dev)
+        log(f"  {cfg.name} f32: greedy tokens card (captured step: "
+            f"{graph_line(prog)}) equal to the CPU's {torch.equal(gg, gc)}")
+        if not (torch.equal(gg, gc) and prog.captures == 1
+                and prog.calls == {"step": 7}):
+            fail(f"the card's {cfg.name} generation disagrees with the CPU's")
 
 
 def timed(fn):
@@ -3577,9 +3641,11 @@ def lm_path(dev, profile):
     use_pallas False: losses within 1e-2, logits by ``LOGIT_BARS``; then
     ``apply`` in f32 compute, kernels against plain by the f32 bars (the
     precise comparison).
-    Generation: ``greedy_generate`` over the caches (no kernel), its
-    prefill logits held to the cacheless forward's last position.  Returns
-    the launches of K7 and K8 in this phase."""
+    Generation (no kernel): ``generation``, the captured decode step
+    against the eager one, and the prefill's logits held to the cacheless
+    forward's last position; then Zamba2-7B's generation at published
+    width (``zamba_generation``).  Returns the launches of K7 and K8 in
+    this phase."""
     import dataclasses
 
     import torch
@@ -3587,7 +3653,7 @@ def lm_path(dev, profile):
     from repro_torch.configs import mamba2_130m, smollm_135m
     from repro_torch.kernels.cut_fuse.ops import roundtrip_boundary
     from repro_torch.models.transformer import TransformerLM
-    from repro_torch.serving.engine import greedy_generate, make_prefill_step
+    from repro_torch.serving.engine import make_prefill_step
 
     kernels = lm_kernels()
     for k in kernels.values():
@@ -3664,15 +3730,10 @@ def lm_path(dev, profile):
 
         prompt = prompts[:, :GEN_PROMPT].contiguous()
         max_len = GEN_PROMPT + GEN_NEW
-        out, sec = call(f"greedy_generate {LM_BATCH} x {GEN_PROMPT} + "
-                        f"{GEN_NEW}", lambda: greedy_generate(
-                            model, params, prompt, GEN_NEW, max_len), none)
-        log(f"    generation: {LM_BATCH * GEN_NEW / sec:,.1f} new tokens/s "
-            f"({sec:.3f} s with the prefill); peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if out.shape != (LM_BATCH, GEN_NEW) or out.dtype != torch.int32 or \
-                not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
-            fail(f"{cfg.name}: generated tokens malformed")
+        generation(model, params, prompt, lambda label, fn: call(
+            label, fn, none))
+        log(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            " GiB")
         last, _ = make_prefill_step(model, max_len)(params,
                                                     {"tokens": prompt})
         if not logits_agree("prefill through the cache vs the cacheless "
@@ -3684,13 +3745,143 @@ def lm_path(dev, profile):
                                              use_pallas=True),
                          f"{cfg.name} scoring forward ({LM_BATCH} x "
                          f"{LM_SEQ})", LM_KERNEL_GROUPS)
-        del params, toks, prompts, out
+        del params, toks, prompts
         torch.cuda.empty_cache()
+    zamba_generation(dev, kernels)
     launches = {k: kernels[k].launches for k in ("K7", "K8")}
     log(f"  launches in phase 7: {launches}, K3 {kernels['K3'].launches}")
     if not all(launches.values()):
         fail(f"a kernel of the LM path never launched: {launches}")
     return launches
+
+
+def decode_loop(model, params, prompt, step):
+    """Greedy decode of GEN_NEW tokens after ``prompt`` (bf16 cache): the
+    prompt pass eagerly into a new cache, then ``step`` (the captured or
+    the eager decode step) for each further token.  Returns (tokens, the
+    steps' last-position logits stacked)."""
+    import torch
+    b, s = prompt.shape
+    cache = model.cache_init(b, s + GEN_NEW, device=prompt.device)
+    with torch.no_grad():
+        logits, cache, _ = model.apply(params, prompt, cache=cache)
+        tok = logits[:, -1:, :].argmax(dim=-1).to(torch.int32)
+        toks, lgs = [tok], []
+        for i in range(GEN_NEW - 1):
+            lg, cache = step(params, cache, tok, torch.full(
+                (b, 1), s + i, dtype=torch.int32, device=prompt.device))
+            lgs.append(lg)
+            tok = lg.argmax(dim=-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+    return torch.cat(toks, dim=1), torch.stack(lgs)
+
+
+def generation(model, params, prompt, call):
+    """Phase 7's generation for one model: GEN_NEW greedy tokens after
+    ``prompt`` through the captured decode step (``captured_decode_step``)
+    and through the eager ``make_decode_step`` loop, from the same prompt
+    pass: tokens equal, each step's logits bit-equal (else held by
+    ``LOGIT_BARS``, the largest difference printed); then timed, both
+    with the prefill: ``greedy_generate`` (its program the one captured
+    above: same key and params, its cache reset) against the eager loop,
+    new tokens/s each.  One program, one capture.  ``call(label, fn)``
+    times a call and checks it launched no hand kernel."""
+    import torch
+
+    from repro_torch.serving.engine import (captured_decode_step,
+                                            decode_programs, greedy_generate,
+                                            make_decode_step,
+                                            make_prefill_step)
+    name, cfg = model.cfg.name, model.cfg
+    b, s = prompt.shape
+    graph, lg_graph = decode_loop(model, params, prompt,
+                                  captured_decode_step(model))
+    eager, lg_eager = decode_loop(model, params, prompt,
+                                  make_decode_step(model))
+    diff = max_err(lg_graph, lg_eager)
+    same = torch.equal(graph, eager)
+    log(f"    captured step against eager, {b} x {s} + {GEN_NEW}: tokens "
+        f"equal {same}, step logits "
+        + ("bit-equal" if diff == 0 else f"differ by up to {diff:.4g}"))
+    ok = same and (diff == 0 or logits_agree(
+        "captured vs eager step logits", lg_graph, lg_eager))
+    del lg_graph, lg_eager
+    _, psec = call(f"prefill {b} x {s}", lambda: make_prefill_step(
+        model, s + GEN_NEW)(params, {"tokens": prompt}))
+    out, sec = call(f"greedy_generate {b} x {s} + {GEN_NEW} (captured step)",
+                    lambda: greedy_generate(model, params, prompt, GEN_NEW,
+                                            s + GEN_NEW))
+    (_, esec) = call(f"eager make_decode_step loop {b} x {s} + {GEN_NEW}",
+                     lambda: decode_loop(model, params, prompt,
+                                         make_decode_step(model)))
+    progs = decode_programs(model)
+    n = GEN_NEW - 1
+    tok_ms, eager_ms = ((t - psec) / n * 1e3 for t in (sec, esec))
+    log(f"    generation: {b * GEN_NEW / sec:,.1f} new tokens/s with the "
+        f"captured step ({sec:.3f} s with the prefill), "
+        f"{b * GEN_NEW / esec:,.1f} eager ({esec:.3f} s); a token "
+        f"{tok_ms:.3f} ms against {eager_ms:.3f} ms past the prefill's "
+        f"{psec * 1e3:.3f} ms; programs {len(progs)}: "
+        + "; ".join(f"{graph_line(p)}, capture "
+                    f"{p.capture_s.get('step', 0):.3f} s" for p in progs))
+    if len(progs) == 1:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(n):
+            progs[0]("step")
+        end.record()
+        torch.cuda.synchronize()
+        log(f"    one replay of the step: {start.elapsed_time(end) / n:.3f} "
+            f"ms (CUDA events over {n})")
+    if not (ok and torch.equal(out, graph)):
+        fail(f"{name}: the captured decode step disagrees with the eager "
+             "one")
+    if len(progs) != 1 or progs[0].captures != 1:
+        fail(f"{name}: expected one decode program with one capture")
+    if out.shape != (b, GEN_NEW) or out.dtype != torch.int32 or \
+            not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail(f"{name}: generated tokens malformed")
+
+
+def zamba_generation(dev, kernels):
+    """Phase 7's Zamba2-7B: published width, depth cut 81 -> ZAMBA_DEPTH
+    (``hybrid_attn_every`` 6 kept: the shared block applied twice, each
+    application on its own cache), random bf16 weights from seed 0; the
+    generation of ``generation``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import zamba2_7b
+    from repro_torch.models.transformer import TransformerLM, layer_kinds
+    cfg = dataclasses.replace(zamba2_7b.CONFIG, n_layers=ZAMBA_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM.build(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), dev)
+    prompt = lm_tokens(cfg.vocab_size, GEN_PROMPT, dev)
+    shared = layer_kinds(cfg).count("shared")
+    log(f"  {cfg.name} at published width (d_model {cfg.d_model}), depth "
+        f"cut {zamba2_7b.CONFIG.n_layers} -> {ZAMBA_DEPTH} Mamba2 layers "
+        f"(hybrid_attn_every {cfg.hybrid_attn_every}: the shared block "
+        f"applied {shared} times, {shared} caches), random weights (bf16 "
+        "compute)")
+    if shared != 2:
+        fail(f"{cfg.name}: the cut model applies the shared block {shared} "
+             "times")
+
+    def call(label, fn):
+        before = {k: v.launches for k, v in kernels.items()}
+        out, sec = timed(fn)
+        n = {k: v.launches - before[k] for k, v in kernels.items()}
+        log(f"    {label}: {sec * 1e3:.3f} ms, launches {n}")
+        if any(n.values()):
+            fail(f"{cfg.name} {label}: launched {n}")
+        return out, sec
+    generation(model, params, prompt, call)
+    log(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB")
+    del params, prompt
+    torch.cuda.empty_cache()
 
 
 # kernel-name fragments of each share that --profile reports
@@ -4615,6 +4806,82 @@ def placement_path(dev, clients):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the port's reference examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "federated_cxr", "compressed_splitfed",
+            "private_splitfed", "train_and_serve", "serve_decode")
+
+
+def example_losses(name, out) -> dict:
+    """An example's training runs: {label: per-epoch mean losses}, and
+    whether each must fall (the non-private ones)."""
+    if name == "quickstart":
+        return {m: (out[m]["losses"], True) for m in ("sflv3_ac", "sl_ac")}
+    if name == "federated_cxr":
+        return {"fl": (out["losses"], True)}
+    if name == "compressed_splitfed":
+        return {k: (r["losses"], True) for k, r in out["runs"].items()}
+    if name == "private_splitfed":
+        return {k: (r["losses"], k == "non-private") for k, r in out.items()
+                if k != "train_images"}
+    if name == "train_and_serve":
+        return {"fl": ([r["loss"] for r in out["rounds"]], True)}
+    return {}
+
+
+def examples_path(dev):
+    """Phase 17: each of the port's six reference examples
+    (``examples/<name>_torch.py``) through its ``main`` on the card at the
+    reference's own sizes, its printed results shown (telemetry tables
+    left out): every loss finite and the non-private ones falling, the
+    assertions of ``train_and_serve`` (served scores within 1e-5 of
+    ``scores_all``, the checkpoint round trip bit-exact), and
+    ``serve_decode``'s tokens well formed, each model's step captured
+    once.  Returns the wall seconds of each example."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    from repro_torch.configs.registry import REGISTRY
+    secs = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_torch_example", ROOT / "examples" / f"{name}_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            spec.loader.exec_module(mod)
+            with contextlib.redirect_stdout(buf):
+                out = mod.main([])
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported, then fail
+            log(buf.getvalue())
+            fail(f"example {name}: {type(e).__name__}: {e}")
+        secs[name] = time.perf_counter() - t0
+        log(f"  examples/{name}_torch.py ({secs[name]:.1f} s):")
+        for line in buf.getvalue().splitlines():
+            if line.strip() and not line.startswith("|"):
+                log(f"    {line}")
+        for label, (losses, falls) in example_losses(name, out).items():
+            if not all(math.isfinite(l) for l in losses) or (
+                    falls and not losses[-1] < losses[0]):
+                fail(f"example {name} {label}: losses {losses}")
+        if name == "serve_decode":
+            for arch, run in out.items():
+                t, vocab = run["tokens"], REGISTRY[arch].smoke.vocab_size
+                if t.dtype != torch.int32 or t.shape != (4, 24) or \
+                        not bool(((t >= 0) & (t < vocab)).all()) or \
+                        run["captures"] != 1:
+                    fail(f"example serve_decode {arch}: tokens malformed or "
+                         f"{run['captures']} captures")
+    return secs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3,
@@ -4673,7 +4940,8 @@ def main():
     for key, n in private_path(dev, clients, args.profile).items():
         launches[key] = launches.get(key, 0) + n
 
-    phase("phase 7: LM serving, SmolLM-135M and Mamba2-130M")
+    phase("phase 7: LM serving, SmolLM-135M and Mamba2-130M, and the "
+          f"captured decode step on Zamba2-7B (depth {ZAMBA_DEPTH})")
     launches.update(lm_path(dev, args.profile))
 
     phase("phase 8: the Table-2 grid, DenseNet-121 at 224^2 and the U-Net "
@@ -4718,6 +4986,9 @@ def main():
     for key, n in placement_path(dev, clients).items():
         launches[key] += n
     del clients
+
+    phase("phase 17: the port's six reference examples at their own sizes")
+    examples_path(dev)
 
     phase("phase 10: the kernels line")
     for key, n in launches.items():

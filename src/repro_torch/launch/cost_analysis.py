@@ -31,7 +31,10 @@ real run would issue.  Two dispatch modes read them:
     then over every axis, and at last the op runs on the full tensors,
     its result replicated; a lookup into a vocabulary-sharded operand
     (``GATHERS``) runs vocabulary-parallel.  Each such op is recorded
-    (``resharded``), and the gathers it takes count as collectives.
+    (``resharded``), and the gathers it takes count as collectives.  A
+    cache write into a sequence-sharded KV cache (``index_copy_`` along
+    the sharded dim, ``WRITES``) runs on each device's block, as the
+    partitioner writes a dynamic-update-slice in place.
 """
 
 from __future__ import annotations
@@ -51,6 +54,10 @@ _COLL_OPS = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
 # results of these do not survive a later reshape, so they run as
 # vocabulary-parallel lookups with plain partial sums (``_sharded_lookup``)
 GATHERS = ("gather", "index")
+# writes into an operand sharded along the written dim: DTensor takes them
+# as it takes other ops and re-places the operand it writes in place, so
+# they run on each device's block (``_sharded_write``)
+WRITES = ("index_copy_",)
 
 
 def _tensors(tree) -> list:
@@ -170,6 +177,9 @@ class ReshardMode(TorchDispatchMode):
             if out is not None:
                 self.resharded[f"{name} (sharded lookup)"] += 1
                 return out
+        if name in WRITES and _sharded_write(func, args):
+            self.resharded[f"{name} (sharded write)"] += 1
+            return args[0]
         try:
             return func(*args, **kwargs)
         except Exception:  # noqa: BLE001 - a refusal, resolved below
@@ -270,6 +280,48 @@ def _sharded_lookup(func, name, args):
                 out_place[i] = Shard(ids.dim() + p.dim - 1)
     out_place[v] = Partial()
     return DTensor.from_local(out, mesh, out_place, run_check=False)
+
+
+def _sharded_write(func, args) -> bool:
+    """``index_copy_(self, dim, index, source)`` with ``self`` sharded along
+    ``dim`` as the write of each device's block: the index replicated,
+    the source placed as ``self`` but whole along ``dim``, and each device
+    writes the slots that fall in its block (the others rewrite their
+    current value: exact while the clamped slots are distinct, as a
+    decode step's one slot is).  False where the op is not such a
+    write."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dst, dim, idx, src = args[:4]
+    if not isinstance(dst, DTensor):
+        return False
+    dim = dim % dst.dim()
+    mesh = dst.device_mesh
+    seq = [i for i, p in enumerate(dst.placements)
+           if isinstance(p, Shard) and p.dim == dim]
+    if not seq:
+        return False
+
+    def placed(t, place):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, place).to_local()
+    ids = placed(idx, [Replicate()] * mesh.ndim)
+    val = placed(src, [Replicate() if i in seq else p
+                       for i, p in enumerate(dst.placements)])
+    loc = dst.to_local()
+    n = loc.shape[dim]
+    off = 0
+    for i in seq:       # the block's offset: mesh dims in order, major first
+        off = off * mesh.size(i) + mesh.get_local_rank(i)
+    local = ids - off * n
+    valid = (local >= 0) & (local < n)
+    local = local.clamp(0, n - 1)
+    shape = [1] * loc.dim()
+    shape[dim] = -1
+    keep = loc.index_select(dim, local)
+    func(loc, dim, local, torch.where(valid.view(shape), val, keep))
+    return True
 
 
 def _map(fn, tree):

@@ -238,8 +238,7 @@ def _full_params(cfg, mesh):
 
 def _cache(model, shape_name, mesh):
     shapes, shardings = SPECS.cache_specs(model, shape_name, mesh)
-    return tree_map(lambda t, sh: t if not isinstance(t, torch.Tensor)
-                    else distribute(t, sh), shapes, shardings)
+    return distribute(shapes, shardings)
 
 
 def build_prefill(entry, shape_name, mesh, variant=None):

@@ -72,7 +72,7 @@ _BASE_RANK = {"k": 4, "v": 4, "pos": 2, "conv": 3, "ssm": 4, "index": 0}
 def cache_specs(model, shape_name: str, mesh, dtype=torch.bfloat16,
                 as_pspec: bool = False):
     """The cache tree on ``meta`` and its shardings for a decode shape
-    (the attention caches' ``index`` is a host int: spec ``()``)."""
+    (the attention caches' 0-d ``index`` is replicated: spec ``()``)."""
     sh = INPUT_SHAPES[shape_name]
     b, s = sh["global_batch"], sh["seq_len"]
     if model.cfg.frontend is not None:
@@ -90,8 +90,6 @@ def cache_specs(model, shape_name: str, mesh, dtype=torch.bfloat16,
         return dim % axes_size(mesh, axes) == 0
 
     def leaf_spec(name, leaf):
-        if not isinstance(leaf, torch.Tensor):
-            return ()
         rank = leaf.dim()
         stacked = 1 if rank == _BASE_RANK.get(name, rank) + 1 else 0
         lead = (None,) * stacked

@@ -280,13 +280,17 @@ def _chunked_attn(q, k, v, positions, kv_positions, sliding_window, chunk):
 def attention_apply(p, cfg: AttnConfig, x, positions, cache=None,
                     use_pallas: bool = False):
     """x: (B, S, D).  ``cache``: None for a cacheless forward, or one
-    layer's {"k": (B,T,KV,hd), "v": ..., "pos": (B,T) int32, "index": int}.
-    Returns (out, new_cache).
+    layer's {"k": (B,T,KV,hd), "v": ..., "pos": (B,T) int32, "index": 0-d
+    int32}.  Returns (out, new_cache).
 
     Unlike the reference, which returns new arrays, the cache's k, v and
     pos are updated in place (so a decode step copies one token, not the
-    cache); ``new_cache`` holds those tensors and the new index.
-    ``use_pallas`` sends a cacheless, unwindowed forward to K7."""
+    cache); ``new_cache`` holds those tensors and the advanced index, a
+    new tensor: the layers of a run share one index tensor, which they
+    only read (``transformer._run_apply`` advances it once a call).  The
+    write slot is computed on the device, so a captured decode step
+    serves every position.  ``use_pallas`` sends a cacheless, unwindowed
+    forward to K7."""
     b, s, d = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
@@ -313,10 +317,11 @@ def attention_apply(p, cfg: AttnConfig, x, positions, cache=None,
             # The start is clamped so the update fits, as
             # ``dynamic_update_slice`` clamps it
             idx = cache["index"] % cl
-            at = min(idx, cl - s)
-            ck[:, at:at + s] = k
-            cv[:, at:at + s] = v
-            cpos[:, at:at + s] = positions
+            slots = (torch.clamp_max(idx, cl - s)
+                     + torch.arange(s, device=ck.device))
+            ck.index_copy_(1, slots, k.to(ck.dtype))
+            cv.index_copy_(1, slots, v.to(cv.dtype))
+            cpos.index_copy_(1, slots, positions.to(cpos.dtype))
             index = idx + s
             k_all, v_all, kv_pos = ck, cv, cpos
         new_cache = {"k": ck, "v": cv, "pos": cpos, "index": index}
@@ -344,7 +349,7 @@ def attention_cache_init(cfg: AttnConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.full((batch, max_len), INT32_MAX, dtype=torch.int32,
                               device=device),
-            "index": 0}
+            "index": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 # ---------------------------------------------------------------------------

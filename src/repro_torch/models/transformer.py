@@ -290,7 +290,10 @@ def _run_apply(run_p, shared_p, spec: RunSpec, cfg: ModelConfig, x,
                positions, cache, use_pallas=False, remat=False):
     """One layer at a time over the stacked params (a ``shared`` run: the
     shared block once, on its own unstacked cache); a cache's tensors are
-    updated in place through their per-layer views.  ``remat`` (training,
+    updated in place through their per-layer views, and an attention
+    run's one index tensor advances once a call, in place after its last
+    layer (each layer reads it), so the cache dict keeps its tensors from
+    call to call, as a captured decode step needs.  ``remat`` (training,
     no cache) recomputes each layer in the backward pass.  Returns (x,
     cache, aux), aux the layers' summed auxiliary loss or None."""
     apply = _BLOCK_APPLY[spec.kind]
@@ -301,7 +304,7 @@ def _run_apply(run_p, shared_p, spec: RunSpec, cfg: ModelConfig, x,
                 "the segment that owns it")
         x, nc, aux = apply(shared_p, cfg, x, positions, cache, use_pallas)
         if cache is not None:
-            cache["index"] = nc["index"]
+            cache["index"].copy_(nc["index"])
         return x, cache, aux
     def layer(lp, x):
         x, _, a = apply(lp, cfg, x, positions, None, use_pallas)
@@ -318,7 +321,7 @@ def _run_apply(run_p, shared_p, spec: RunSpec, cfg: ModelConfig, x,
             x, nc, a = apply(lp, cfg, x, positions, lc, use_pallas)
         aux = _add(aux, a)
     if cache is not None and "index" in cache:
-        cache["index"] = nc["index"]     # every layer advanced it alike
+        cache["index"].copy_(nc["index"])   # every layer advanced it alike
     return x, cache, aux
 
 

@@ -12,8 +12,9 @@
                   coalesces single-image requests into the largest ready
                   bucket under a max-wait, with backpressure, per-request
                   latency accounting, and ``obs`` trace lanes.
-  * ``engine``  — LM serving: batched prefill, single-token decode and
-                  greedy generation, independent of the CNN service.
+  * ``engine``  — LM serving: batched prefill, single-token decode (one
+                  captured CUDA graph a model, ``captured_decode_step``)
+                  and greedy generation, independent of the CNN service.
 """
 
 from repro_torch.serving.batcher import (Backpressure, RequestBatcher,

@@ -16,7 +16,8 @@ on the CPU, nothing allocated:
     plus the four cases of ``tests/test_launch.py``;
   * ``cache_specs`` for ``decode_32k`` and ``long_500k`` equal to the
     reference's leaf for leaf (the reference's tests' config and every
-    SMOKE config), and the batch specs;
+    SMOKE config; the attention caches' index a 0-d int32 tensor), and
+    the batch specs;
   * ``make_production_mesh`` touches nothing on import and builds the
     (16, 16) and (2, 16, 16) meshes over a fake process group, in a
     subprocess.
@@ -83,8 +84,8 @@ def _flat(tree, path=()):
 
 
 def _flat_dict(tree, path=()):
-    """{path: leaf} through dicts only (a spec tree's leaves are tuples,
-    a cache's index an int)."""
+    """{path: leaf} through dicts only (a spec tree's leaves are
+    tuples)."""
     if not isinstance(tree, dict):
         return {path: tree}
     return {p: v for k, t in sorted(tree.items())
@@ -207,8 +208,14 @@ def test_cache_specs_match(shape):
         for jm, tm in models:
             for k, js, ts, jl, tl in _cache_pairs(jm, tm, shape, mesh):
                 assert js == ts, (k, js, ts)
-                if isinstance(tl, torch.Tensor):
-                    assert tl.device.type == "meta"
+                assert tl.device.type == "meta", k
+                if k[-1] == "index":
+                    # a 0-d int32 tensor as the reference's; the layers of
+                    # a port run share one, where the reference's stacked
+                    # run carries one a layer
+                    assert tl.shape == () and tl.dtype == torch.int32, k
+                    assert jl.dtype == np.int32 and len(jl.shape) <= 1, k
+                else:
                     assert tuple(jl.shape) == tuple(tl.shape), k
     # the reference tests' own reading: k/v batch on data, seq on model
     # (decode_32k); batch replicated, seq over every axis (long_500k)
