@@ -187,10 +187,16 @@ Phases, in order; any failure exits nonzero before the last line:
      768^2 in bf16, 5 x 2 batches of 2, ``run()`` then ``run(observe=
      True)`` on one strategy (one memory pool): params bit-equal, the cut
      statistics over the 5-leaf boundary, both peaks; (e) on the observed
-     SFLv3 run: its tracer's spans, ``round_events`` and the simulated wire
-     lane written as one Chrome trace and read back, ``write_runlog`` /
-     ``write_report``, ``torch_profile`` around one observed replay (its
-     trace names K3's kernel), ``graph_cost`` and ``cost_summary``;
+     SFLv3 run: its tracer's spans (``h2d`` an epoch, one ``replay.<body>``
+     a replay that did not capture), ``round_events`` and the simulated
+     wire lane written as one Chrome trace and read back, ``write_runlog``
+     / ``write_report``, ``torch_profile`` around one observed replay (its
+     trace names K3's kernel), ``graph_cost`` and ``cost_summary``; then
+     three observed epochs under ``torch.profiler``: each ``replay.step``
+     span of the tracer's device lane, mapped onto the profiler's clock,
+     starts within ``ALIGN_MEDIAN_MS`` (median) and ``ALIGN_WORST_MS``
+     (worst) of its first kernel, and the kernels are busy for
+     ``ALIGN_BUSY`` or more of the spans' summed length;
  15. LM training and the model kinds (it also runs before phase 10): K1,
      K2 and K3 bit-equal to their plain versions on their design's paths
      (vector at 576, general at 5,120) and timed at the LM links' bf16 rows, 16,384 x 576 and 4,096 x 5,120
@@ -3030,6 +3036,11 @@ OBS_BAR = 1e-4        # compiled against stepwise: the reference's own bar
 OBS_CUT_BAR = 1e-4    # cut statistics against the held payload, relative
 CUT_KEYS = ("cut_mean", "cut_std", "cut_absmax")
 OBS_PART_N, OBS_PART_K = 10, 4
+# phase 14 (e): the device lane's ``replay.step`` spans against the
+# profiler's kernels: start offsets in ms (median, worst) and the share of
+# the spans' length in which a kernel runs
+ALIGN_MEDIAN_MS, ALIGN_WORST_MS, ALIGN_BUSY = 0.2, 1.0, 0.95
+ALIGN_EPOCHS = 3
 
 
 def clone_state(state):
@@ -3382,6 +3393,12 @@ def observed_host_side(strat, on, rt, clients, tmp):
 
     tracer = strat._tracer
     spans = [e["name"] for e in tracer.events]
+    # the capturing call of each body is not stamped
+    stamped = {k: n - 1 for k, n in on["prog"].calls.items() if n > 1}
+    lane = {}
+    for name in spans:
+        if name.startswith("replay."):
+            lane[name[7:]] = lane.get(name[7:], 0) + 1
     events = tracer.trace_events() + round_events(rt, tracer.find(
         "dispatch"))
     sim = timeline_from_accounting(strat.transport,
@@ -3391,12 +3408,16 @@ def observed_host_side(strat, on, rt, clients, tmp):
     events += wire_events(sim, label=strat.name)
     path = write_chrome_trace(events, os.path.join(tmp, "trace.json"))
     back = json.load(open(path))["traceEvents"]
-    names = {e["name"] for e in back}
+    names = {e["name"] for e in back} | {
+        e["args"]["name"] for e in back if e["name"] == "thread_name"}
     log(f"  trace: spans {spans}; {len(back)} events written and read "
         f"back")
-    if spans != ["pack", "dispatch", "run"] or len(back) != len(events) or \
-            not {"round 0", "round 1"} <= names:
-        fail("the observed run's trace lacks its spans or round slices")
+    host = [n for n in spans if not n.startswith("replay.")]
+    if host != ["pack"] + ["h2d"] * OBS_EPOCHS + ["dispatch", "run"] or \
+            lane != stamped or len(back) != len(events) or \
+            not {"round 0", "round 1", "device (CUDA events)"} <= names:
+        fail(f"the observed run's trace lacks its spans, replays ({lane} "
+             f"of {stamped}) or round slices")
     cost = cost_summary(strat, wall_seconds=1.0,
                         total_steps=sum(l.steps for l in on["logs"]))
     runlog = write_runlog(tmp, strat.name, telemetry=rt, cost=cost)
@@ -3422,6 +3443,73 @@ def observed_host_side(strat, on, rt, clients, tmp):
         f"K3 as {k3[:2]}")
     if not k3:
         fail("the profiled observed replay does not name K3's kernel")
+    replay_alignment(strat, on["state"], clients)
+
+
+def replay_alignment(strat, state, clients):
+    """Phase 14 (e): ``ALIGN_EPOCHS`` observed epochs from a copy of
+    ``state`` under ``torch.profiler``; the tracer's ``replay.step`` spans
+    are mapped onto the profiler's clock through one marked range whose
+    host time is known (as ``perfbench/trace.py`` maps them) and held
+    against the kernels the profiler saw inside them."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.obs import Telemetry
+
+    tracer = strat._tracer
+    data = [{k: v[:2 * BATCH] for k, v in c.train.items()} for c in clients]
+    n0 = len(tracer.events)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mark_host = time.perf_counter()
+        with record_function("align.mark"):
+            pass
+        strat.run(clone_state(state), data, np.random.default_rng(2), BATCH,
+                  ALIGN_EPOCHS, observe=Telemetry())
+        torch.cuda.synchronize()
+    epoch0 = time.perf_counter() - tracer.now()
+    kernels, mark = [], None
+    for e in prof.profiler.kineto_results.events():
+        a = e.start_ns() / 1e3
+        if e.name() == "align.mark":
+            if e.device_type() != DeviceType.CUDA:
+                mark = a
+        elif e.device_type() == DeviceType.CUDA:
+            kernels.append((a, a + e.duration_ns() / 1e3))
+    off = mark - mark_host * 1e6
+    steps = [(epoch0 * 1e6 + e["ts"] + off,
+              epoch0 * 1e6 + e["ts"] + e["dur"] + off)
+             for e in tracer.events[n0:] if e["name"] == "replay.step"]
+    starts, ends, busy = [], [], 0.0
+    for a, b in steps:
+        over = sorted((s, t) for s, t in kernels if s < b and t > a)
+        if not over:
+            fail(f"no kernel inside a replay.step span ({a:.1f}, {b:.1f})")
+        starts.append(abs(over[0][0] - a) / 1e3)
+        ends.append(abs(max(t for _, t in over) - b) / 1e3)
+        at = a                    # the union of the kernels, cut to the span
+        for s, t in over:
+            busy += max(min(t, b) - max(s, at), 0.0)
+            at = max(at, t)
+    share = busy / sum(b - a for a, b in steps)
+    med, worst = statistics.median(starts), max(starts)
+    log(f"  device lane against the profiler, {len(steps)} replay.step "
+        f"spans of {ALIGN_EPOCHS} epochs (mean "
+        f"{sum(b - a for a, b in steps) / len(steps) / 1e3:.3f} ms): start "
+        f"offset median {med:.4f} ms, worst {worst:.4f} ms; end offset "
+        f"median {statistics.median(ends):.4f} ms, worst {max(ends):.4f} "
+        f"ms; kernels busy {100 * share:.2f}% of the spans")
+    if len(steps) != 2 * ALIGN_EPOCHS or not (
+            med <= ALIGN_MEDIAN_MS and worst <= ALIGN_WORST_MS
+            and ALIGN_BUSY <= share <= 1.0):
+        fail("the device lane's replay.step spans do not match the "
+             "profiler's kernels")
 
 
 def observed_path(dev, clients):

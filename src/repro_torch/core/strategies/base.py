@@ -288,14 +288,16 @@ class Strategy:
         return self._tel_active
 
     def attach_tracer(self, tracer):
-        """Attach an ``obs.trace.Tracer``: the host phases (``run``,
-        ``pack``, ``dispatch``, and ``round i`` on the per-epoch path) are
-        recorded as spans.  On the card ``dispatch`` spans the replay
-        loop up to the run's one readback: replays are asynchronous, so
-        the host reaches the readback early and waits there for the
-        device, but the per-epoch batch copies from pageable host memory
-        synchronise with it, so the span is the device's time for the
-        run, give or take the last epoch's copy."""
+        """Attach an ``obs.trace.Tracer`` (None detaches it): the host
+        phases (``run``, ``pack``, ``dispatch``, ``h2d`` inside it, one an
+        epoch, ``val_loss``, and ``round i`` on the per-epoch path) are
+        recorded as spans, and every replay of a compiled run as a
+        ``replay.<body>`` span on the tracer's device lane
+        (``_dispatching``).  ``dispatch`` is host time: the replay loop
+        up to the run's one readback, where the host waits for the device
+        (the batch copies from pageable host memory also wait for the
+        work before them).  The device's time is the ``replay.*`` spans;
+        the gaps between them are the device's idle time in the run."""
         self._tracer = tracer
         return tracer
 
@@ -303,6 +305,30 @@ class Strategy:
         if self._tracer is None:
             return contextlib.nullcontext()
         return self._tracer.span(name, **args)
+
+    @contextlib.contextmanager
+    def _dispatching(self, progs):
+        """The ``dispatch`` span of one compiled run of ``progs`` (a
+        program, or a placed run's list): with a tracer attached, the
+        programs time their replays for the span's length
+        (``engine.Program.tracer``) and place them on its device lane
+        before it closes, after the run's readback (a placed run's
+        anchors wait for its devices)."""
+        tracer = self._tracer
+        if tracer is None:
+            yield
+            return
+        progs = progs if isinstance(progs, list) else [progs]
+        with tracer.span("dispatch"):
+            for p in progs:
+                p.tracer = tracer
+            try:
+                yield
+                for p in progs:
+                    p.place_replays()
+            finally:
+                for p in progs:
+                    p.tracer, p._replays = None, []
 
     def _count_dispatch(self, n: int = 1):
         """Tally host->device training-program invocations: a stepwise
@@ -545,16 +571,17 @@ class Strategy:
 
     @torch.no_grad()
     def val_loss(self, state, clients, batch_size=60):
-        losses = []
-        for i, c in enumerate(clients):
-            params = self.params_for_eval(state, i)
-            for b in np_batches(c.val, min(batch_size, len(c.val["label"])),
-                                None):
-                losses.append(self.adapter.full_loss(
-                    params, self.to_device(b), train=False))
-        if not losses:
-            return 0.0
-        return sum(torch.stack(losses).cpu().tolist()) / len(losses)
+        with self._span("val_loss"):
+            losses = []
+            for i, c in enumerate(clients):
+                params = self.params_for_eval(state, i)
+                for b in np_batches(c.val, min(batch_size,
+                                               len(c.val["label"])), None):
+                    losses.append(self.adapter.full_loss(
+                        params, self.to_device(b), train=False))
+            if not losses:
+                return 0.0
+            return sum(torch.stack(losses).cpu().tolist()) / len(losses)
 
 
 # ---------------------------------------------------------------------------

@@ -92,7 +92,7 @@ class Centralized(Strategy):
             self, packed, state, t))
         prog.load(state)
         calls = dict(prog.calls)
-        with self._span("dispatch"):
+        with self._dispatching(prog):
             losses, met = ENG.to_host(*prog.run(
                 batches, self._program_draw(packed, prog.params, 0),
                 key_idx))

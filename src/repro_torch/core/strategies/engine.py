@@ -63,6 +63,10 @@ CUDA graph of the step, replayed:
     whose FL round writes the update cosine; they come back with the
     losses.  A strategy's programs warm up and capture in one
     ``GraphPool``.
+  * **tracing** (``obs.trace``): while a traced run dispatches
+    (``Strategy._dispatching``) a program times each replay on the card
+    with a pair of CUDA events from its pool (``Program.tracer``), and
+    places them on the tracer's device lane after the run's readback.
 
 A whole ``Strategy.run(n_epochs)`` packs every round up front, then for
 each round copies its batches and step table into the static buffers and
@@ -83,6 +87,7 @@ import torch
 from repro_torch.core.aggregate import stacked_mean_sync, tree_mean
 from repro_torch.kernels import build as B
 from repro_torch.obs.telemetry import update_cosine
+from repro_torch.obs.trace import TID_DEVICE
 from repro_torch.tree import (stack_trees, tree_leaves, tree_map, tree_put,
                               tree_select, tree_take)
 
@@ -453,9 +458,18 @@ class Program:
     capture's host seconds, warm-up included (``obs.profile.
     graph_cost``).  A program holds no reference to its strategy, so
     dropping the strategy frees the graphs' memory pools at once.
+
+    While ``tracer`` is set (an ``obs.trace.Tracer``, for the length of a
+    traced run's ``dispatch`` span) each run of a body is timed: on the
+    card by two timing events from the program's pool recorded on its
+    stream around the replay (not around the call that captures), on the
+    CPU by the host clock; ``place_replays`` puts them on the tracer's
+    device lane.  Unset, no event is made or recorded.
     """
 
     bodies: tuple = ("step",)
+    #: the ``obs.trace.Tracer`` of a traced run while it dispatches
+    tracer = None
     #: the memory pool its graphs capture into (None: a private pool);
     #: programs that never replay at once may share one
     #: (``torch.cuda.graph_pool_handle()``), as the serving scorer's do
@@ -472,6 +486,12 @@ class Program:
         self.calls: dict = {}           # body -> runs (replays on the card)
         self.capture_s: dict = {}       # body -> warm-up + capture seconds
         self.t = torch.zeros((1,), dtype=torch.int64, device=device)
+        # the traced run's timed replays, (body, start, end): CUDA events
+        # from the pool (two a replay, grown to the largest run) on the
+        # card, ``tracer.now()`` readings on the CPU
+        self._replays: list = []
+        self._events: list = []
+        self._anchor = None
 
     @property
     def captures(self) -> int:
@@ -489,8 +509,14 @@ class Program:
 
     def __call__(self, name: str) -> None:
         self.calls[name] = self.calls.get(name, 0) + 1
+        tracer = self.tracer
         if self.device.type != "cuda":
+            if tracer is None:
+                getattr(self, "_" + name)()
+                return
+            t0 = tracer.now()
             getattr(self, "_" + name)()
+            self._replays.append((name, t0, tracer.now()))
             return
         graph = self.graphs.get(name)
         if graph is None:
@@ -498,9 +524,51 @@ class Program:
             graph = self._capture(name)
             torch.cuda.synchronize(self.device)
             self.capture_s[name] = time.perf_counter() - t0
-        graph.replay()
+            graph.replay()
+        elif tracer is None:
+            graph.replay()
+        else:
+            k = 2 * len(self._replays)
+            if k == len(self._events):
+                self._events += [torch.cuda.Event(enable_timing=True)
+                                 for _ in range(2)]
+            begin, end = self._events[k:k + 2]
+            stream = torch.cuda.current_stream(self.device)
+            begin.record(stream)
+            graph.replay()
+            end.record(stream)
+            self._replays.append((name, begin, end))
         for kernel, n in self._launch_deltas[name]:
             kernel.launches += n
+
+    def _span(self, name: str):
+        """A host span of the traced run (inert untraced)."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name)
+
+    def place_replays(self) -> None:
+        """Put the run's timed replays on the tracer's device lane, one
+        ``replay.<body>`` span each, and forget them.  On the card, once
+        the run is read back: one anchor event recorded on the program's
+        stream and synchronised on is read against ``tracer.now()``, and
+        each stamp lands at that time less its ``elapsed_time`` to the
+        anchor."""
+        tracer, spans = self.tracer, self._replays
+        if spans and self.device.type == "cuda":
+            if self._anchor is None:
+                self._anchor = torch.cuda.Event(enable_timing=True)
+            anchor = self._anchor
+            anchor.record(torch.cuda.current_stream(self.device))
+            anchor.synchronize()
+            now = tracer.now()
+
+            def at(ev):
+                return now - ev.elapsed_time(anchor) / 1e3
+            spans = [(n, at(a), at(b)) for n, a, b in spans]
+        for name, t0, t1 in spans:
+            tracer.event("replay." + name, t0, t1, tid=TID_DEVICE)
+        self._replays = []
 
     def _capture(self, name: str):
         body, carry = getattr(self, "_" + name), self.carry()
@@ -646,7 +714,8 @@ class _PackedProgram(Program):
         """Step every epoch of ``batches`` (``pack_run``'s ``[E, C, NB, B,
         ...]`` arrays, or ``pack_participation_run``'s over the slots).
         ``begin_round(e)``, if given, loads round ``e``'s per-round data
-        (``load_round``) after its batches; then the ``begin`` body runs,
+        (``load_round``) after its batches (both copies inside a traced
+        run's ``h2d`` span); then the ``begin`` body runs,
         if the program has one, and the step body replays once per row of
         the round's table.  A keyed program fills its noise buffers with
         ``draw(key_idx[e][s], rows[s])`` before step ``s`` of epoch ``e``,
@@ -664,11 +733,12 @@ class _PackedProgram(Program):
         met = {k: torch.empty((n_epochs, *v.shape), device=self.device)
                for k, v in {**self.metrics, **self.round_metrics()}.items()}
         for e in range(n_epochs):
-            for k, buf in self.batches.items():
-                buf.copy_(torch.from_numpy(np.ascontiguousarray(
-                    batches[k][e].reshape(buf.shape))))
-            if begin_round is not None:
-                begin_round(e)
+            with self._span("h2d"):
+                for k, buf in self.batches.items():
+                    buf.copy_(torch.from_numpy(np.ascontiguousarray(
+                        batches[k][e].reshape(buf.shape))))
+                if begin_round is not None:
+                    begin_round(e)
             self.t.zero_()
             if "begin" in self.bodies:
                 self("begin")

@@ -204,7 +204,7 @@ class FedAvg(Strategy):
                             staleness=pack.staleness[e],
                             slot_gid=pack.slot_gid[e])
         calls = dict(prog.calls)
-        with self._span("dispatch"):
+        with self._dispatching(prog):
             out = ENG.to_host(*prog.run(
                 batches, self._program_draw(first, prog.glob),
                 key_idx.reshape(len(key_idx), -1), self._end_round(prog),

@@ -175,11 +175,12 @@ def run_fl(strat, state, batches: dict, pack, key_idx: np.ndarray):
     cos = torch.empty((E, N), device=dev0)
     observe_cos = tel is not None and tel.update_cosine
     calls = [dict(p.calls) for p in progs]
-    with strat._span("dispatch"):
+    with strat._dispatching(progs):
         for e in range(E):
-            for ch, prog in zip(chunks, progs):
-                load_batches(prog, padded, e, ch)
-                prog.t.zero_()
+            with strat._span("h2d"):
+                for ch, prog in zip(chunks, progs):
+                    load_batches(prog, padded, e, ch)
+                    prog.t.zero_()
             for s in range(progs[0].n_steps):
                 for ch, prog, draw in zip(chunks, progs, draws):
                     i = 0 if draw is None else int(
@@ -266,11 +267,12 @@ def run_interleaved(strat, state, batches: dict, pack, key_idx, sched,
              for k, v in p.metrics.items()} for p in progs]
     calls = [dict(p.calls) for p in progs]
     holder = None                    # the chunk holding the newest server
-    with strat._span("dispatch"):
+    with strat._dispatching(progs):
         for e in range(E):
-            for ch, prog in zip(chunks, progs):
-                load_batches(prog, padded, e, ch)
-                prog.t.zero_()
+            with strat._span("h2d"):
+                for ch, prog in zip(chunks, progs):
+                    load_batches(prog, padded, e, ch)
+                    prog.t.zero_()
             for p, k in enumerate(owner):
                 prog = progs[k]
                 if holder is not None and holder != k:
@@ -576,14 +578,17 @@ def run_sync(strat, state, batches: dict, pack, key_idx, steps: int,
         (E, *server.losses.shape), device=server.device)
     everyone = progs + ([server] if server is not None else [])
     calls = [dict(p.calls) for p in everyone]
-    with strat._span("dispatch"):
+    with strat._dispatching(everyone):
         for e in range(E):
-            for ch, prog in zip(chunks, progs):
-                load_batches(prog, padded, e, ch)
+            with strat._span("h2d"):
+                for ch, prog in zip(chunks, progs):
+                    load_batches(prog, padded, e, ch)
+                if server is not None:
+                    load_batches(server, padded, e, head)
+            for prog in progs:
                 prog.t.zero_()
                 prog("begin")
             if server is not None:
-                load_batches(server, padded, e, head)
                 server.t.zero_()
             for s in range(steps):
                 i = int(key_idx[e, s])

@@ -195,7 +195,7 @@ class SplitLearning(Strategy):
             draw = self._program_draw(first, {"c": state["clients"][0],
                                               "s": state["server"]})
             calls = dict(prog.calls)
-            with self._span("dispatch"):
+            with self._dispatching(prog):
                 losses, met = ENG.to_host(*prog.run(batches, draw, key_idx,
                                                     None, begin_round))
             self._dispatch(prog, calls, 1)

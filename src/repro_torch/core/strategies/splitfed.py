@@ -256,7 +256,7 @@ class SplitFedV3(SplitLearning):
                 return self._step_draws(i, prog.clients, prog.server,
                                         example, gids)
         calls = dict(prog.calls)
-        with self._span("dispatch"):
+        with self._dispatching(prog):
             out = ENG.to_host(*prog.run(batches, draw, key_idx, None,
                                         begin_round))
         self._dispatch(prog, calls, pack.n_slots)

@@ -1,16 +1,29 @@
 """Run tracing — one merged Chrome-trace/Perfetto JSON per run
 (counterpart of ``repro/obs/trace.py``, host code: the port's spans are
-host wall-clock, its wire lane the simulator's simulated time).
+host wall-clock, its replays' device time placed on that clock, its wire
+lane the simulator's simulated time).
 
-Clock domains, each on its own ``pid`` lane:
+Clock domains, each on its own lane:
 
   * **engine host** (``PID_ENGINE``): real wall-clock spans recorded by
-    ``Tracer`` around the strategy's host phases (run -> pack -> dispatch;
-    ``round i`` on the per-epoch path).  A compiled run replays every
-    round inside one ``dispatch`` span, so ``round_events`` subdivides it
-    into equal per-round slices (flagged ``synthetic``) that carry the
-    per-round telemetry as args and the cumulative RDP epsilon as Chrome
-    counter (ph "C") tracks;
+    ``Tracer`` around the strategy's host phases (run -> pack -> dispatch
+    -> h2d, one an epoch: the copies of its batches and round tables to
+    the card; ``val_loss``; ``round i`` on the per-epoch path).  A
+    compiled run replays every round inside one ``dispatch`` span, so
+    ``round_events`` subdivides it into equal per-round slices (flagged
+    ``synthetic``) that carry the per-round telemetry as args and the
+    cumulative RDP epsilon as Chrome counter (ph "C") tracks;
+  * **device** (``PID_ENGINE``, thread ``TID_DEVICE``): one complete span
+    a replayed program body, ``replay.<body>`` (``replay.step``,
+    ``replay.begin``, ``replay.round``, ...), timed on the card by a pair
+    of CUDA timing events recorded on the program's stream around the
+    replay (``engine.Program``; a pool of events a program, grown to its
+    largest run).  The events are placed on the tracer's clock after the
+    run's one readback, when the device is idle: one anchor event is
+    recorded there and synchronised on, ``now()`` read, and each stamp
+    lands at the anchor's time less its ``elapsed_time`` to the anchor.
+    On the CPU a body runs synchronously, and the host clock times the
+    same spans;
   * **wire** (``PID_WIRE``): the *simulated*-time transfer timelines from
     ``wire.simulator`` (``simulate`` or ``timeline_from_accounting``) —
     per-client tracks of upload/download events with tag + byte args.
@@ -34,6 +47,8 @@ import numpy as np
 PID_ENGINE = 1
 PID_WIRE = 2
 PID_SERVING = 3
+#: the engine lane's thread of device spans (``replay.<body>``)
+TID_DEVICE = 3
 
 
 def _meta(pid, name, tid=None, tname=None):
@@ -49,7 +64,8 @@ class Tracer:
     """Host-side span tree: nested ``with tracer.span(name):`` blocks
     become Chrome complete ("X") events on one engine-host track.  A
     strategy given to ``Strategy.attach_tracer`` records its run / pack /
-    dispatch phases here."""
+    dispatch / h2d / val_loss phases here, and its programs' replays on
+    the device thread (``TID_DEVICE``)."""
 
     def __init__(self, pid: int = PID_ENGINE, tid: int = 1):
         self.pid, self.tid = pid, tid
@@ -99,8 +115,11 @@ class Tracer:
         return None
 
     def trace_events(self) -> list:
-        return _meta(self.pid, "engine host", self.tid, "strategy") \
-            + list(self.events)
+        meta = _meta(self.pid, "engine host", self.tid, "strategy")
+        if any(e.get("tid") == TID_DEVICE for e in self.events):
+            meta += _meta(self.pid, "engine host", TID_DEVICE,
+                          "device (CUDA events)")[1:]
+        return meta + list(self.events)
 
 
 def round_events(run_telemetry, dispatch_span=None, pid: int = PID_ENGINE,
@@ -185,4 +204,5 @@ def write_chrome_trace(events: list, path) -> str:
 
 
 __all__ = ["Tracer", "round_events", "wire_events", "merge_events",
-           "write_chrome_trace", "PID_ENGINE", "PID_WIRE", "PID_SERVING"]
+           "write_chrome_trace", "PID_ENGINE", "PID_WIRE", "PID_SERVING",
+           "TID_DEVICE"]
