@@ -35,7 +35,14 @@ Phases, in order; any failure exits nonzero before the last line:
      K7: SDPA); K1-K4 are timed at the main path's shape and the U-Net's
      widest leaf (5,898,240 x 64) in both dtypes, as bare launches
      (outputs allocated once) beside their wrappers, K4 also at one
-     hospital's 50,176 x 160 f32 rows;
+     hospital's 50,176 x 160 f32 rows; hold K9 (GroupNorm + ReLU) bit for
+     bit to ATen's ``F.relu(F.group_norm(...))`` at the U-Net's 768^2 x 64
+     norms (a hospital's front at batch 2, its first norm channels_last,
+     the server's decoder at batch 10) and DenseNet-121's middle at batch
+     80 (56^2 x 160 channels_last, 56^2 x 128, 28^2 x 256, 7^2 x 1024),
+     f32 and bf16, and within an ulp to its plain version at the front;
+     time it in f32 at each beside its byte bound and ATen's pair (its
+     launches on the main paths are held in phases 5, 6 and 9);
   4. train SplitFedv3 (``sflv3_ac``) on DenseNet-121-mini at 32^2 on the
      card and on the CPU from the same start, and hold the card's losses
      and scores against the CPU's plain path over an identity link (the
@@ -52,11 +59,14 @@ Phases, in order; any failure exits nonzero before the last line:
      hospitals, batch 16 per hospital, over ``Transport("int8")`` fused
      (K3) and unfused (K1, K2), then ``val_loss`` and
      ``evaluate``; the first step's losses of the two runs must be
-     bit-identical and every launch count of the path nonzero;
+     bit-identical, every launch count of the path nonzero, and every step
+     must launch K9's two kernels once per GroupNorm of its forwards (5
+     fronts, the server's middle);
   6. the private main path: the same with ``PrivacyConfig(noise_multiplier
      =1.0, clip_norm=1.0, cut_noise_std=0.5)`` over the int8 link fused
      (K4, K5, K6) and unfused (K1, K2 + the masked add, K5, K6), first-step
-     losses bit-identical, every launch count nonzero, then
+     losses bit-identical, every launch count nonzero, K9's two kernels
+     as often as each other in every step, then
      ``privacy_report``, ``val_loss`` and ``evaluate``; and a cut-noise-only
      run (DP off) with one K4 launch per step over all hospitals' rows;
   7. LM serving at published width, random weights, bf16: SmolLM-135M and
@@ -94,10 +104,14 @@ Phases, in order; any failure exits nonzero before the last line:
      8 in bf16 and its SFLv3 runs in f32; per run every loss, param and
      epsilon equal to the stepwise engine's, one capture per program
      body, the launches per replay (K3 once per boundary leaf; K4-K6
-     once per hospital on the private step), K3's output at every
+     once per hospital on the private step; K9's two kernels alike, and
+     on SFLv3's non-private runs once per GroupNorm of the step's forwards,
+     5 fronts and tails and the middle), K3's output at every
      boundary leaf of the last replay bit-equal to its plain version on
      the graph's own buffers, the wire bytes equal to ``comm_per_epoch``'s
      train legs, ``evaluate``, and both engines' step seconds and peaks;
+     one profiled replay of SFLv3's f32 LS step of each model runs K9 and
+     no forward kernel of ATen's GroupNorm;
  11. the private grid at full width (it runs before phase 10, which
      prints the line): DenseNet-121 at 224^2, 5 hospitals of 40 images at
      batch 16 (two full batches and a kept remainder of 8; SFLv3 drops
@@ -248,10 +262,11 @@ Phases, in order; any failure exits nonzero before the last line:
      printed results, every loss finite and the non-private ones falling,
      train_and_serve's own assertions, serve_decode's tokens well formed
      and each model's decode step captured once;
- 10. print one JSON line ``{"kernels": [...]}`` (K1-K8; K1-K4 with their
+ 10. print one JSON line ``{"kernels": [...]}`` (K1-K9; K1-K4 with their
      bf16 rows, ``unet_leaf`` entries and ``bare_ms``, K4 with
-     ``one_hospital``, K1-K3 with their LM link rows; launches of every
-     phase), then the last line ``{"ok": true, "device": {...}}``.
+     ``one_hospital``, K1-K3 with their LM link rows, K9 with its other
+     ``shapes``; launches of every phase, K9's both kernels'),
+     then the last line ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  ``--profile`` adds one profiled fused
 step of each main path, of the U-Net's SFLv3 and SL-AM (LS) in phase 8,
@@ -425,6 +440,7 @@ def check_kernels(dev):
     table.update(time_k3_k4(dev, gen, err))
     check_past_2_31(dev, gen)
     table.update(check_dp_clip(dev, gen))
+    table.update(check_group_norm(dev, gen))
     return table
 
 
@@ -1036,6 +1052,180 @@ def check_dp_clip(dev, gen):
     return table
 
 
+# K9's shapes: (label, (N, C, H, W), channels_last): a hospital's U-Net
+# front at 768^2 x 64 (its first norm reads the segment's channels_last
+# input), the server's decoder at batch 10, and DenseNet-121's middle at
+# batch 80 (the first norm at 56^2 x 160 channels_last, a bottleneck norm,
+# 28^2, and 7^2, whose planes are not whole 4-element vectors)
+K9_SHAPES = [("unet front", (2, 64, 768, 768), False),
+             ("unet front first", (2, 64, 768, 768), True),
+             ("unet decoder", (10, 64, 768, 768), False),
+             ("densenet middle first", (80, 160, 56, 56), True),
+             ("densenet bottleneck", (80, 128, 56, 56), False),
+             ("densenet 28^2", (80, 256, 28, 28), False),
+             ("densenet 7^2", (80, 1024, 7, 7), False)]
+
+
+def k9_inputs(dev, gen, shape, cl, dt=None):
+    import torch
+    x = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
+    x = x.to(dt) if dt is not None else x
+    if cl:
+        x = x.to(memory_format=torch.channels_last)
+    return (x, torch.randn(shape[1], device=dev, generator=gen),
+            torch.randn(shape[1], device=dev, generator=gen))
+
+
+def check_group_norm(dev, gen):
+    """K9 (GroupNorm + ReLU) bit-equal to ATen's ``F.relu(F.group_norm(
+    ...))`` (the pair it replaced; its mean and rstd to ``native_group_norm
+    ``'s) at ``K9_SHAPES`` in f32 and bf16 (through f32, as the model runs
+    it), and within an ulp of its plain version at the U-Net front; then
+    timed in f32 at each shape beside its byte bound (8 bytes an f32
+    element: x read once, y written once; the two passes of its design move
+    12), ATen's pair, and (once, at the front) the plain version, whose
+    chains are a Python loop of 9,216 steps.  The table's row is the U-Net
+    front's; the other shapes are under ``shapes``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.group_norm import group_norm as GN
+    from repro_torch.kernels.group_norm import ref as RG
+
+    for label, shape, cl in K9_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x, gamma, beta = k9_inputs(dev, gen, shape, cl, dt)
+            y, m, r = GN.group_norm_relu_fwd(x, gamma, beta, 8, 1e-5)
+            xf = x.float()
+            pair = F.relu(F.group_norm(xf, 8, gamma, beta, 1e-5)).to(dt)
+            n, c, h, w = shape
+            _, am, ar = torch.ops.aten.native_group_norm(
+                xf.contiguous(), gamma, beta, n, c, h * w, 8, 1e-5)
+            torch.cuda.synchronize()
+            ok = (torch.equal(y, pair) and torch.equal(m, am)
+                  and torch.equal(r, ar) and y.is_contiguous())
+            log(f"  K9 {label} {tuple(shape)} "
+                f"{'channels_last' if cl else 'NCHW'} {str(dt)[6:]}: "
+                f"bit-equal to ATen's pair {ok} (y max abs "
+                f"{max_err(y, pair):.3g}, mean {max_err(m, am):.3g}, rstd "
+                f"{max_err(r, ar):.3g})")
+            if not ok:
+                fail(f"K9 differs from ATen's GroupNorm + ReLU at {label} "
+                     f"{str(dt)[6:]}")
+            del x, xf, y, pair
+    x, gamma, beta = k9_inputs(dev, gen, K9_SHAPES[0][1], False)
+    y, m, r = GN.group_norm_relu_fwd(x, gamma, beta, 8, 1e-5)
+    t0 = time.perf_counter()
+    py, pm, pr = RG.group_norm_relu_ref(x, gamma, beta, 8, 1e-5)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(max_err(y, py), max_err(m, pm), max_err(r, pr))
+    ulp = 2.0 ** -23
+    log(f"  K9 against its plain version at the U-Net front: y max abs "
+        f"{max_err(y, py):.3g}, mean {max_err(m, pm):.3g}, rstd "
+        f"{max_err(r, pr):.3g}; the plain version {plain_ms:.1f} ms "
+        f"(host clock, once)")
+    if not (((m - pm).abs() <= ulp * pm.abs()).all()
+            and ((r - pr).abs() <= ulp * pr).all()
+            and ((y - py).abs() <= 4 * ulp * py.abs() + 1e-7).all()):
+        fail("K9 parts from its plain version by more than an ulp")
+    del x, y, py
+    rows = {}
+    for label, shape, cl in K9_SHAPES:
+        x, gamma, beta = k9_inputs(dev, gen, shape, cl)
+        n = x.numel()
+        def kern():
+            return GN.group_norm_relu_fwd(x, gamma, beta, 8, 1e-5)
+
+        def aten():
+            return F.relu(F.group_norm(x, 8, gamma, beta, 1e-5))
+        k0, a0, a1, k1 = cuda_ms(kern), cuda_ms(aten), cuda_ms(aten), \
+            cuda_ms(kern)
+        b_ms, b_by = roof(8 * n, [(4 * n, F32_OPS_PER_S)])
+        two_pass = 12 * n / HBM_BYTES_PER_S * 1e3
+        row = {"name": "group_norm_relu", "route": "cuda",
+               "source": CUDA_SRC + "group_norm.cu",
+               "replaces": "none (XLA's GroupNorm)", "launches": 0,
+               "max_abs_err": err, "ms": (k0 + k1) / 2,
+               "plain_ms": plain_ms if label == "unet front" else None,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": (a0 + a1) / 2}
+        log(f"  K9 group_norm_relu: {row['ms']:.4f} ms ({k0:.4f}, "
+            f"{k1:.4f}; ATen's pair {row['library_ms']:.4f} ms ({a0:.4f}, "
+            f"{a1:.4f}), bound {b_ms:.4f} ms by {b_by}: "
+            f"{100 * b_ms / row['ms']:.1f}%, the two passes' {two_pass:.4f}"
+            f" ms: {100 * two_pass / row['ms']:.1f}%) at {label} "
+            f"{tuple(shape)} {'channels_last' if cl else 'NCHW'} f32")
+        rows[label] = row
+        del x
+    table = dict(rows["unet front"])
+    table["shapes"] = {k: {f: v[f] for f in ("ms", "library_ms",
+                                             "bound_ms")}
+                       for k, v in rows.items() if k != "unet front"}
+    return {"K9": table}
+
+
+# K9 runs at every GroupNorm of the CNNs (phases 5, 6 and 9 hold its
+# launches); phases 12 and 14 hold a replay's launches of the cut-layer
+# and DP kernels alone
+K9_SYMBOLS = ("group_norm_relu_stats", "group_norm_relu_apply",
+              "group_norm_to_nchw")
+
+
+def without_k9(per: dict) -> dict:
+    """A replay's launches (``Program.per_replay``) but K9's."""
+    return {k: v for k, v in per.items() if k not in K9_SYMBOLS}
+
+
+GN_FORWARD_ATEN = ("RowwiseMoments", "ComputeFusedParams",
+                   "GroupNormKernelImpl", "GroupNorm1dForward")
+
+
+def k9_sites(params) -> int:
+    """GroupNorm layers in a segment's params."""
+    return sum(1 for unit in params.values() for layer in unit.values()
+               if set(layer) == {"scale", "bias"})
+
+
+def k9_step_sites(adapter, n) -> int:
+    """GroupNorms that one SFLv3 step of ``n`` hospitals runs forward:
+    each hospital's front (and tail, NLS), the server's middle once."""
+    import torch
+    params = adapter.init(None, torch.device("meta"))
+    return sum(k9_sites(p) * (1 if seg == "middle" else n)
+               for seg, p in params.items())
+
+
+def k9_count(label, stats, apply, want=None):
+    """K9's two kernels launched alike, at least once, and ``want`` times
+    each where it is given."""
+    if stats != apply or not stats or (want is not None and stats != want):
+        fail(f"{label}: K9 launched stats {stats}, apply {apply}; expected "
+             f"{'as many' if want is None else want} of each")
+
+
+def aten_group_norm_free(call, label):
+    """Profile ``call()`` (one replay): K9's kernels run in it, and no
+    forward kernel of ATen's GroupNorm."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if getattr(e, "device_type", None) == DeviceType.CUDA}
+    aten = sorted(n for n in names if any(f in n for f in GN_FORWARD_ATEN))
+    ours = sorted(n for n in names if "group_norm" in n)
+    log(f"    ATen GroupNorm forward kernels in a profiled replay: "
+        f"{aten or 'none'}; K9's: {len(ours)} kernels")
+    if aten or not ours:
+        fail(f"{label}: ATen's GroupNorm forward ran ({aten}) or K9 did "
+             "not")
+
+
 def seq_inner(t):
     """The same values with the q axis (2) innermost in memory, as the
     model's conv lays out xbar, B and C."""
@@ -1224,15 +1414,17 @@ def check_lm_kernels(dev, gen):
 
 def train(method, adapter, clients, batch, device, fuse=True, seed=0,
           step_seconds=None, codec="int8", privacy=None, n_train=None,
-          transport=None):
+          transport=None, step_launches=None):
     """Build a method of the Table-2 grid as a user would, on the stepwise
     engine (phases 4-8; phase 9 runs the compiled one beside it), and
     train one epoch (on the first ``n_train`` train images of each
     hospital, all by default), over ``Transport(codec)`` (``codec`` None:
     no transport, as centralized and FL have no cut layer); with a list
     ``step_seconds`` each step is timed on the host clock between two
-    device synchronisations.  ``privacy``: PrivacyConfig keywords;
-    ``transport``: a Transport to use instead of ``Transport(codec)``."""
+    device synchronisations, and with a list ``step_launches`` too, each
+    step's launches of ``path_kernels`` are appended to it.  ``privacy``:
+    PrivacyConfig keywords; ``transport``: a Transport to use instead of
+    ``Transport(codec)``."""
     import numpy as np
     import torch
 
@@ -1249,13 +1441,18 @@ def train(method, adapter, clients, batch, device, fuse=True, seed=0,
         privacy=None if privacy is None else PrivacyConfig(**privacy))
     if step_seconds is not None:
         step = strat._step
+        kernels = path_kernels()
 
         def timed(*args, **kw):
+            before = {n: k.launches for n, k in kernels.items()}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = step(*args, **kw)
             torch.cuda.synchronize()
             step_seconds.append(time.perf_counter() - t0)
+            if step_launches is not None:
+                step_launches.append({n: k.launches - before[n]
+                                      for n, k in kernels.items()})
             return out
         strat._step = timed
     state = strat.setup(seed)
@@ -1418,14 +1615,18 @@ def path_kernels():
     from repro_torch.kernels.act_compress import act_compress as AC
     from repro_torch.kernels.cut_fuse import cut_fuse as CF
     from repro_torch.kernels.dp_clip import dp_clip as DC
+    from repro_torch.kernels.group_norm import group_norm as GN
     return {"K1": AC.QUANTIZE, "K2": AC.DEQUANTIZE, "K3": CF.ROUNDTRIP,
             "K4": CF.NOISE_ROUNDTRIP, "K5": DC.SQNORMS,
-            "K6": DC.SCALE_ACCUM}
+            "K6": DC.SCALE_ACCUM, "K9 stats": GN.STATS,
+            "K9 apply": GN.APPLY}
 
 
 def run_path(label, clients, dev, fuse, privacy=None, n_train=None):
     """One epoch of the main path; returns (strategy, state, per-step
-    losses, launches of each kernel in this run)."""
+    losses, launches of each kernel in this run).  Every step launches
+    K9's two kernels alike, once per GroupNorm of each forward without
+    ``privacy`` (the hospitals' fronts, the server's middle)."""
     import numpy as np
     import torch
 
@@ -1434,10 +1635,11 @@ def run_path(label, clients, dev, fuse, privacy=None, n_train=None):
     kernels = path_kernels()
     torch.cuda.reset_peak_memory_stats()
     before = {n: k.launches for n, k in kernels.items()}
-    step_s = []
+    step_s, step_n = [], []
     strat, state, epoch, tr = sflv3(DENSENET121_PAPER, clients, BATCH, dev,
                                     fuse, step_seconds=step_s,
-                                    privacy=privacy, n_train=n_train)
+                                    privacy=privacy, n_train=n_train,
+                                    step_launches=step_n)
     counts = {n: k.launches - before[n] for n, k in kernels.items()}
     losses = np.asarray(epoch.losses).reshape(epoch.steps, -1)
     log(f"  sflv3_ac {label}: {epoch.steps} steps, step seconds "
@@ -1448,6 +1650,12 @@ def run_path(label, clients, dev, fuse, privacy=None, n_train=None):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not np.isfinite(losses).all():
         fail(f"non-finite losses in the {label} run")
+    sites = None if privacy else k9_step_sites(strat.adapter, len(clients))
+    log(f"    K9 a step (stats, apply): "
+        f"{[(n['K9 stats'], n['K9 apply']) for n in step_n]}"
+        + ("" if privacy else f"; {sites} GroupNorms a step"))
+    for n in step_n:
+        k9_count(f"{label}, a step", n["K9 stats"], n["K9 apply"], sites)
     return strat, state, losses, counts
 
 
@@ -1476,7 +1684,7 @@ def main_path(dev, clients, profile):
             "fused (K3)" if fuse else "unfused (K1, K2)", clients, dev, fuse)
     evaluate(strat, state, clients)     # the fused strategy, the default
     launches = {n: k.launches for n, k in path_kernels().items()
-                if n in ("K1", "K2", "K3")}
+                if n in ("K1", "K2", "K3", "K9 stats", "K9 apply")}
     if not np.array_equal(runs[True][0], runs[False][0]):
         fail("first-step losses differ between the fused and unfused runs")
     if not all(launches.values()):
@@ -1511,7 +1719,8 @@ def private_path(dev, clients, profile):
             fail("privacy_report lacks a finite epsilon for a hospital")
         # every hospital, every step: one launch of each of its kernels
         want = {k: expect[fuse].get(k, 0) * n * len(runs[fuse])
-                for k in counts}
+                for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+        counts = {k: counts[k] for k in want}
         if counts != want:
             fail(f"{label}: launches {counts}, expected {want}")
     evaluate(strat, state, clients)
@@ -1873,7 +2082,9 @@ def engine_pair(method, nls, precision, opts, adapter, clients, batch, dev,
     progs = list(strat._programs.values())
     prog = progs[0]
     bodies = len(prog.bodies)
-    per = prog.per_replay.get("step", {})
+    step = prog.per_replay.get("step", {})
+    per = without_k9(step)
+    k9 = [step.get(sym, 0) for sym in K9_SYMBOLS]
     dl = max(float(np.abs(np.asarray(a.losses) - np.asarray(b.losses))
                    .max()) for a, b in zip(sw["logs"], cp["logs"]))
     dp, same = 0.0, True
@@ -1890,9 +2101,14 @@ def engine_pair(method, nls, precision, opts, adapter, clients, batch, dev,
         f"{[(n, round(t, 3)) for n, t in cp['first']]}); run wall "
         f"{sw['wall']:.3f} / {cp['wall']:.3f} s; peak "
         f"{sw['peak'] / 2**30:.2f} / {cp['peak'] / 2**30:.2f} GiB")
+    sflv3_ls = method == "sflv3_ac" and not privacy
+    sites = k9_step_sites(adapter, len(clients)) if sflv3_ls else None
     log(f"    compiled: {len(progs)} program, {prog.captures} captures, "
-        f"per replay {json.dumps(per)}; |loss diff| {dl:.3g}, "
-        f"|param diff| {dp:.3g}")
+        f"per replay {json.dumps(per)}, K9 stats {k9[0]} apply {k9[1]} "
+        f"(channels_last inputs copied {k9[2]})"
+        + (f" for {sites} GroupNorms" if sites else "")
+        + f"; |loss diff| {dl:.3g}, |param diff| {dp:.3g}")
+    k9_count(f"{label}, a replay", k9[0], k9[1], sites)
     if len(progs) != 1 or prog.captures != bodies:
         fail(f"{label}: {len(progs)} programs and {prog.captures} captures;"
              f" expected one program captured once per body ({bodies})")
@@ -1948,6 +2164,10 @@ def engine_pair(method, nls, precision, opts, adapter, clients, batch, dev,
     elif per:
         fail(f"{label}: a kernel launched without a cut layer: {per}")
     evaluate(strat, cp["state"], clients)
+    if sflv3_ls and not nls and precision == "fp32" and fuse \
+            and epochs == 1:
+        prog.t.zero_()
+        aten_group_norm_free(lambda: prog("step"), label)
     if profile:
         prog.t.zero_()
         profile_call(lambda: prog("step"), f"{label} replayed step",
@@ -2392,8 +2612,8 @@ def part_k_equals_n(dev, clients):
                 same = same and torch.equal(x, y)
                 dp = max(dp, float((x - y).abs().max()))
         wire = [r["tr"].bytes_on_wire if r["tr"] else None for r in runs]
-        per = one_program(f"{method} k=N", b["strat"]).per_replay.get(
-            "step", {})
+        per = without_k9(one_program(
+            f"{method} k=N", b["strat"]).per_replay.get("step", {}))
         replay = [mean_s(r["replays"].get("step", [])) for r in (b, a)]
         log(f"  (a) {method}: k=N against none: losses equal "
             f"{all(same_loss)}, params equal {same} (|diff| {dp:.3g}), "
@@ -2435,7 +2655,7 @@ def part_k_of_n(dev, clients):
         r = part_run(method, adapter, clients, dev, part, privacy,
                      snapshots=snaps)
         strat, prog = r["strat"], one_program(label, r["strat"])
-        per = {k: v for k, v in prog.per_replay.get("step", {}).items()}
+        per = without_k9(prog.per_replay.get("step", {}))
         sync3 = method.startswith("sflv3")
         dp, cut = privacy.get("noise_multiplier"), privacy.get("cut_noise_std")
         want = {}
@@ -3305,7 +3525,7 @@ def observed_pair(method, adapter, clients, batch, dev, privacy=None,
         example = {k: v[:batch] for k, v in clients[0].train.items()}
         leaves = sum(len(tree_leaves(t)) for t in
                      strat.adapter.boundary_specs(example).values())
-        per = q.per_replay.get("step", {})
+        per = without_k9(q.per_replay.get("step", {}))
         if per != {"cut_roundtrip": leaves}:
             fail(f"{label}: launches per replay {per}, expected K3 once "
                  f"per boundary leaf ({leaves})")
@@ -5079,6 +5299,7 @@ def main():
     examples_path(dev)
 
     phase("phase 10: the kernels line")
+    launches["K9"] = launches.pop("K9 stats") + launches.pop("K9 apply")
     for key, n in launches.items():
         table[key]["launches"] = n
     phase(None)

@@ -12,9 +12,9 @@ Layouts: a segment takes and returns contiguous NHWC tensors (every leaf of
 its boundary tree), as the reference does, so the cut tensors and their
 int8 rows (one row = all channels at one (b, h, w) position) are the
 reference's.  Inside a segment the units run on the NCHW view of that
-memory (``torch.channels_last``); ATen's CUDA GroupNorm returns
-NCHW-contiguous tensors, so after the first norm a segment runs in NCHW and
-leaving it copies each leaf once into NHWC.
+memory (``torch.channels_last``); GroupNorm (K9 on the card, ATen's
+elsewhere) returns NCHW-contiguous tensors, so after the first norm a
+segment runs in NCHW and leaving it copies each leaf once into NHWC.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import math
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
@@ -149,9 +148,9 @@ def _dense_layer(cfg: DenseNetConfig, in_ch: int):
                 "c2": L.conv_init(gen, 4 * g, g, 3, device)}
 
     def apply(p, x):
-        h = F.relu(L.groupnorm_apply(p["n1"], x))
+        h = L.groupnorm_relu_apply(p["n1"], x)
         h = L.conv_apply(p["c1"], h)
-        h = F.relu(L.groupnorm_apply(p["n2"], h))
+        h = L.groupnorm_relu_apply(p["n2"], h)
         h = L.conv_apply(p["c2"], h)
         return torch.cat([x, h], dim=1)
 
@@ -164,7 +163,7 @@ def _transition(cfg: DenseNetConfig, in_ch: int, out_ch: int):
                 "c": L.conv_init(gen, in_ch, out_ch, 1, device)}
 
     def apply(p, x):
-        h = F.relu(L.groupnorm_apply(p["n"], x))
+        h = L.groupnorm_relu_apply(p["n"], x)
         h = L.conv_apply(p["c"], h)
         return L.avg_pool(h, 2, 2)
 
@@ -181,7 +180,7 @@ def build_densenet(cfg: DenseNetConfig, cut: int | None = None,
 
     def stem_apply(p, x):
         h = L.conv_apply(p["c"], x, stride=2)
-        h = F.relu(L.groupnorm_apply(p["n"], h))
+        h = L.groupnorm_relu_apply(p["n"], h)
         return L.max_pool(h, 3, 2, "SAME")
 
     units.append(("stem", stem_init, stem_apply))
@@ -204,7 +203,7 @@ def build_densenet(cfg: DenseNetConfig, cut: int | None = None,
                 "fc": L.bias_dense_init(gen, final_ch, cfg.n_classes, device)}
 
     def head_apply(p, x):
-        h = F.relu(L.groupnorm_apply(p["n"], x))
+        h = L.groupnorm_relu_apply(p["n"], x)
         h = L.global_avg_pool(h)
         return L.bias_dense_apply(p["fc"], h)
 
@@ -235,8 +234,8 @@ def _sep_norm_pair(in_ch: int, out_ch: int):
                 "n2": L.groupnorm_init(out_ch, device)}
 
     def apply(p, x):
-        h = F.relu(L.groupnorm_apply(p["n1"], L.sepconv_apply(p["c1"], x)))
-        return F.relu(L.groupnorm_apply(p["n2"], L.sepconv_apply(p["c2"], h)))
+        h = L.groupnorm_relu_apply(p["n1"], L.sepconv_apply(p["c1"], x))
+        return L.groupnorm_relu_apply(p["n2"], L.sepconv_apply(p["c2"], h))
 
     return init, apply
 

@@ -6,10 +6,11 @@ embedding) that the transformer and Mamba2 use.
 Parameters are plain dicts of tensors: conv weights are OIHW (the reference
 keeps HWIO; ``repro_torch.interop`` converts), a dense weight is (in, out).
 CNN activations are logically NCHW; a segment's input and output are NHWC in
-memory (``models/cnn.py`` says how).  Convolutions, GroupNorm and pools go
-to ATen / cuDNN.  LM activations are (B, S, D) as in the reference, and
-each op promotes and casts where the reference's does (a bf16 tensor times
-an f32 one is f32 in both frameworks).
+memory (``models/cnn.py`` says how).  Convolutions and pools go to ATen /
+cuDNN; GroupNorm, always followed by a ReLU, goes with it to K9 on the card
+(``groupnorm_relu_apply``).  LM activations are (B, S, D) as in the
+reference, and each op promotes and casts where the reference's does (a
+bf16 tensor times an f32 one is f32 in both frameworks).
 
 Every ``*_init`` draws from an explicit ``torch.Generator`` on the
 generator's device and then moves the tensor, so one seed on a CPU
@@ -26,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.group_norm.ops import group_norm_relu
 from repro_torch.tree import tree_leaves
 
 INT32_MAX = torch.iinfo(torch.int32).max
@@ -108,11 +110,16 @@ def num_groups(c: int, groups: int = 8) -> int:
     return g
 
 
-def groupnorm_apply(p, x, groups=8, eps=1e-5):
-    """x: (B, C, H, W).  Batch-statistics-free GroupNorm in f32."""
-    y = F.group_norm(x.float(), num_groups(x.shape[1], groups),
-                     p["scale"].float(), p["bias"].float(), eps)
-    return y.to(x.dtype)
+def groupnorm_relu_apply(p, x, groups=8, eps=1e-5):
+    """relu(GroupNorm(x)) of x: (B, C, H, W), batch-statistics-free, the
+    statistics and the affine map in f32, the result in x's dtype.  On the
+    card one hand kernel, K9 (``kernels/group_norm``; NCHW-contiguous out
+    of either layout); elsewhere ATen's ``F.group_norm`` and ``F.relu``."""
+    g = num_groups(x.shape[1], groups)
+    scale, bias = p["scale"].float(), p["bias"].float()
+    if x.device.type == "cuda":
+        return group_norm_relu(x, scale, bias, g, eps)
+    return F.relu(F.group_norm(x.float(), g, scale, bias, eps).to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
