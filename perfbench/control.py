@@ -36,18 +36,23 @@ VARIANTS = ("program", "tf32", "half", "no_link", "frozen", "no_wrap",
             "unshuffled", "bf16")
 
 
-def readings(workload: str, seed: int, variants, device) -> dict:
+def readings(parts: tuple, seed: int, variants, device) -> dict:
+    """The first epoch's readings of each of ``variants`` at ``seed``, on a
+    cell's ``parts`` (``harness.cell``'s four), each against the float32
+    reference; the family's program and reference come by the
+    configuration's ``family``."""
     import torch
 
     from perfbench import harness
 
-    _, cfg, traffic, _ = harness.cell(workload, harness.bench())
+    _, cfg, traffic, _ = parts
     out = {}
     s = harness.set_up(cfg, traffic, seed, device)
     prog = s["first"]
     del s["strat"], s["state"]
     gc.collect()
-    torch.cuda.empty_cache()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     t = time.perf_counter()
     ref = harness.reference(cfg, traffic, s, device)
     ref_s = time.perf_counter() - t
@@ -69,7 +74,8 @@ def readings(workload: str, seed: int, variants, device) -> dict:
             b["first"], ref, s["init"], where=True)
         del b
         gc.collect()
-        torch.cuda.empty_cache()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
@@ -87,9 +93,10 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     print(harness.card_power_limit(), flush=True)
+    parts = harness.cell(a.workload, harness.bench())
     allr: dict = {}
     for seed in a.seeds:
-        r = readings(a.workload, seed, a.variants, dev)
+        r = readings(parts, seed, a.variants, dev)
         for v, g in r.items():
             print(json.dumps({"seed": seed, "variant": v, **g},
                              default=str), flush=True)

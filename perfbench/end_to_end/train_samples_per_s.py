@@ -1,7 +1,7 @@
-"""Images trained per second: every image of the window's whole epochs
-(SplitFedv3: steps x hospitals x batch, the smaller hospitals wrapping
-around) over the host time from the first epoch's start
-to the last epoch's validation loss."""
+"""Samples (images, sequences) trained per second: every sample of the
+window's whole epochs (SplitFedv3: steps x hospitals x batch, the smaller
+hospitals wrapping around) over the host time from the first epoch's
+start to the last epoch's validation loss."""
 
 UNIT = "samples/s"
 BETTER = "higher"
@@ -9,4 +9,4 @@ SOURCE = "host_clock"
 
 
 def read(rec):
-    return rec["images"] / rec["window_s"]
+    return rec["samples"] / rec["window_s"]

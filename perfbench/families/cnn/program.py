@@ -1,12 +1,13 @@
-"""The system under test: the PyTorch and CUDA port (``repro_torch``), built
-the way a user builds it, and the only module of the benchmark that
-imports it.
+"""The system under test for the CNN families (``families/densenet``,
+``families/unet``): the PyTorch and CUDA port's strategies
+(``repro_torch``), built the way a user builds them.
 
-``build`` makes the strategy with ``make_strategy`` on the compiled engine
-(one captured CUDA graph per program body, replayed) over the int8 cut
-link; ``load`` puts the benchmark's weights into the strategy's own state;
-``params`` and ``moments`` read the state back as flat ``{path:
-tensor}`` dicts, the reference's layout, for the comparison.
+``strategy`` makes the strategy with ``make_strategy`` on the compiled
+engine (one captured CUDA graph per program body, replayed) over the int8
+cut link, around the family's model adapter; ``load`` puts the benchmark's
+weights into the strategy's own state; ``params`` and ``moments`` read the
+state back as flat ``{path: tensor}`` dicts, the reference's layout, for
+the comparison.
 """
 
 from __future__ import annotations
@@ -17,29 +18,12 @@ import torch
 from perfbench.reference.cnn import flatten
 
 
-def _model(cfg: dict):
-    from repro_torch.core.partition import cnn_adapter
-    from repro_torch.models import cnn
-
-    m = cfg["model"]
-    if cfg["family"] == "densenet":
-        net = cnn.build_densenet(cnn.DenseNetConfig(
-            name=cfg["name"], growth=m["growth"], blocks=tuple(m["blocks"]),
-            stem_ch=m["stem_ch"], compression=m["compression"],
-            in_ch=m["in_ch"], n_classes=m["n_classes"],
-            cut_layer=m["cut_layer"]))
-    else:
-        net = cnn.build_unet(cnn.UNetConfig(
-            name=cfg["name"], widths=tuple(m["widths"]), in_ch=m["in_ch"],
-            n_classes=m["n_classes"], cut_layer=m["cut_layer"]))
-    return cnn_adapter(net)
-
-
-def build(cfg: dict, traffic: dict, device: torch.device,
-          precision: str | None = None):
+def strategy(adapter, cfg: dict, traffic: dict, device: torch.device,
+             precision: str | None = None):
     """The strategy of a cell: ``traffic``'s method, hospitals, link and
-    optimizer over ``cfg``'s model, in ``cfg``'s precision
-    (``precision`` overrides it: the control's program path)."""
+    optimizer over ``adapter`` (the port's ``cnn_adapter`` of ``cfg``'s
+    model), in ``cfg``'s precision (``precision`` overrides it: the
+    control's program path)."""
     from repro_torch import optim
     from repro_torch.core.strategies import make_strategy
     from repro_torch.wire import Transport
@@ -50,7 +34,7 @@ def build(cfg: dict, traffic: dict, device: torch.device,
         raise ValueError(f"unknown optimizer {opt['name']!r}")
     transport = Transport(link["codec"], fuse=link["fused"], device=device)
     return make_strategy(
-        traffic["method"], _model(cfg),
+        traffic["method"], adapter,
         lambda: optim.adam(opt["lr"], b1=opt["b1"], b2=opt["b2"],
                            eps=opt["eps"]),
         len(traffic["train_images"]), transport=transport,

@@ -1,22 +1,45 @@
 """The benchmark of the PyTorch and CUDA port: one run of one cell.
 
 A cell (``BENCHMARK.json`` ``workloads``) names a configuration
-(``configs/<name>.json``: the model, image size, cut and precision) and a
-traffic mix (``traffic/<name>.json``: the method, hospital volumes, batch,
-link, optimizer); its correctness limits are ``limits/<cell>.json``, its
-per-layer metrics ``metrics/<name>.py`` and its end-to-end metrics
-``end_to_end/<name>.py``, each found by its name.  Nothing here is
-specific to one cell.
+(``configs/<name>.json``: the model, its ``family``, input size, cut and
+precision) and a traffic mix (``traffic/<name>.json``: the method,
+hospital volumes, batch, link, optimizer); its correctness limits are
+``limits/<cell>.json``, its per-layer metrics ``metrics/<name>.py`` and
+its end-to-end metrics ``end_to_end/<name>.py``, each found by its name.
+Whatever belongs to one model family is in ``families/<family>/``, found
+by the configuration's ``family``:
+
+  * ``program.py``, the system under test, the only kind of module here
+    that imports the port: ``build(cfg, traffic, device, precision)``,
+    ``load(strat, fronts, middle)`` (a state holding the benchmark's
+    weights), ``epoch(strat, state, train, rng, batch)`` (one epoch of
+    every hospital; the state and the losses, [steps, hospitals or 1]),
+    ``params`` and ``moments`` (a state's parameters and Adam first
+    moments as the reference's flat dicts), ``val_loss``, ``dispatches``
+    and ``attach_tracer``;
+  * ``reference.py``, plain torch: ``hospitals(seed, cfg, traffic,
+    device)`` (each hospital's ``train`` and ``val`` dicts of numpy
+    arrays, keyed by what a batch holds), ``weights(seed, cfg,
+    n_hospitals, device)`` (flat dicts: the fronts and the middle),
+    ``model(cfg)`` (``loss_terms`` of a batch and ``fronts_take_mean``,
+    ``reference/train.py``), ``forward_flops(cfg, traffic)`` (one
+    sample's forward pass) and ``link_bytes(cfg, traffic, rows)`` (one
+    crossing of the cut by ``rows`` samples, as K3 moves it).
+
+The schedule, the SplitFedv3 update, the link, the comparison, the window,
+the trace and the readers are shared, and nothing here is specific to one
+cell or one family.
 
 A run:
-  1. set-up: the hospitals' images and the weights from the seed on the
-     card; the strategy (``program.build``) holding those weights; the
-     first epoch, shuffled by the run's generator, through the window's own
-     ``run_epoch`` (it captures the window's graphs), whose losses, final
-     parameters, Adam moments and validation loss the check compares;
-  2. the window: whole epochs of ``run_epoch`` each followed by
-     ``val_loss``, until ``--seconds`` have passed; with ``--trace 1`` the
-     first ``TRACED_EPOCHS`` epochs run under the profiler;
+  1. set-up: the hospitals' data and the weights from the seed on the
+     card; the program (``build``) holding those weights; the first
+     epoch, shuffled by the run's generator, through the window's own
+     ``epoch`` (the strategies' ``run_epoch`` captures the window's
+     graphs), whose losses, final parameters, Adam moments and validation
+     loss the check compares;
+  2. the window: whole epochs each followed by ``val_loss``, until
+     ``--seconds`` have passed; with ``--trace 1`` the first
+     ``TRACED_EPOCHS`` epochs run under the profiler;
   3. the check, once the window has closed, the peak read and the
      program's state freed: the plain reference follows the first epoch
      from the same weights, batches and order, and each number compared
@@ -26,6 +49,7 @@ A run:
 from __future__ import annotations
 
 import gc
+import importlib
 import importlib.util
 import json
 import math
@@ -39,9 +63,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from perfbench import inputs, program, trace
+from perfbench import trace
 from perfbench.reference import train as R
-from perfbench.reference.cnn import Model
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -91,6 +114,15 @@ def module(kind: str, name: str):
     return mod
 
 
+def family(cfg: dict, part: str):
+    """``families/<cfg["family"]>/<part>.py``, ``part`` ``program`` or
+    ``reference``."""
+    name = cfg["family"]
+    if not name.isidentifier() or not (HERE / "families" / name).is_dir():
+        raise KeyError(f"no family {name!r} in perfbench/families/")
+    return importlib.import_module(f"perfbench.families.{name}.{part}")
+
+
 def metrics_of(b: dict, workload: str, trace_on: bool) -> list:
     """The cell's metric entries: the per-layer ones with ``--trace 1``,
     the end-to-end ones without; an entry with ``workloads`` counts only
@@ -102,8 +134,14 @@ def metrics_of(b: dict, workload: str, trace_on: bool) -> list:
 
 # -- the schedule: what one epoch trains ----------------------------------------
 
+def train_sizes(traffic: dict) -> list:
+    """Each hospital's training samples: the traffic's ``train_samples``
+    (``train_images`` in the image mixes)."""
+    return traffic.get("train_samples", traffic.get("train_images"))
+
+
 def batches_of(traffic: dict) -> list:
-    return [n // traffic["batch"] for n in traffic["train_images"]]
+    return [n // traffic["batch"] for n in train_sizes(traffic)]
 
 
 def epoch_steps(traffic: dict) -> int:
@@ -112,8 +150,8 @@ def epoch_steps(traffic: dict) -> int:
     return max(batches_of(traffic))
 
 
-def step_images(traffic: dict) -> int:
-    return len(traffic["train_images"]) * traffic["batch"]
+def step_samples(traffic: dict) -> int:
+    return len(train_sizes(traffic)) * traffic["batch"]
 
 
 # -- set-up ----------------------------------------------------------------------
@@ -125,19 +163,20 @@ def sync(device) -> None:
 
 def set_up(cfg: dict, traffic: dict, seed: int, device,
            precision: str | None = None) -> dict:
-    """Everything before the window: inputs, the strategy with the
+    """Everything before the window: inputs, the program with the
     benchmark's weights, and its first epoch with the window's call and
     feed, shuffled by the run's generator (``rng``, which the window goes
-    on drawing from).  ``first``: that epoch's losses ([steps,
-    hospitals]), the parameters and Adam first moments after it, and the
+    on drawing from).  ``first``: that epoch's losses ([steps, hospitals
+    or 1]), the parameters and Adam first moments after it, and the
     validation loss."""
     if traffic["kind"] != "train" or not traffic["method"].startswith(
             "sflv3") or traffic["privacy"] is not None:
         raise ValueError(f"{traffic['method']!r}: this harness trains "
                          "SplitFedv3 without privacy")
-    model = Model(cfg)
-    clients = inputs.hospitals(seed, traffic, cfg["image_size"], device)
-    fronts, middle = inputs.weights(seed, model, len(clients), device)
+    ref, program = family(cfg, "reference"), family(cfg, "program")
+    model = ref.model(cfg)
+    clients = ref.hospitals(seed, cfg, traffic, device)
+    fronts, middle = ref.weights(seed, cfg, len(clients), device)
     strat = program.build(cfg, traffic, device, precision)
     state = program.load(strat, fronts, middle)
     rng = np.random.default_rng(seed)
@@ -147,8 +186,8 @@ def set_up(cfg: dict, traffic: dict, seed: int, device,
              "moments": program.moments(state),
              "val": program.val_loss(strat, state, clients)}
     return {"model": model, "clients": clients, "init": (fronts, middle),
-            "seed": seed, "rng": rng, "strat": strat, "state": state,
-            "first": first}
+            "seed": seed, "rng": rng, "program": program, "strat": strat,
+            "state": state, "first": first}
 
 
 # -- the check ---------------------------------------------------------------------
@@ -167,18 +206,17 @@ def reference(cfg: dict, traffic: dict, s: dict, device, tf32=False,
     ``shuffle=False``, the epoch in the data's order."""
     model, clients = s["model"], s["clients"]
 
-    def rows(h, idx):
-        d = clients[h].train
-        return (h, torch.from_numpy(d["image"][idx]).to(device),
-                torch.from_numpy(d["label"][idx]).to(device))
-    order = R.epoch_batches(traffic["train_images"], traffic["batch"],
+    def on_device(d, idx=slice(None)):
+        return {k: torch.from_numpy(v[idx]).to(device) for k, v in d.items()}
+    order = R.epoch_batches(train_sizes(traffic), traffic["batch"],
                             np.random.default_rng(s["seed"]) if shuffle
                             else _Unshuffled())
     if not wrap:
         nb = batches_of(traffic)
         order = [[order[min(i, nb[h] - 1)][h] for h in range(len(nb))]
                  for i in range(len(order))]
-    steps = [[rows(h, idx) for h, idx in step] for step in order]
+    steps = [[(h, on_device(clients[h].train, idx)) for h, idx in step]
+             for step in order]
     fronts, middle = s["init"]
     with R.precision(tf32):
         losses, grads, params, moments = R.train_steps(
@@ -189,9 +227,8 @@ def reference(cfg: dict, traffic: dict, s: dict, device, tf32=False,
             moments = ([{k: torch.zeros_like(v) for k, v in m.items()}
                         for m in moments[0]],
                        {k: torch.zeros_like(v) for k, v in moments[1].items()})
-        val = R.val_loss(model, params[0], params[1], [
-            (torch.from_numpy(c.val["image"]).to(device),
-             torch.from_numpy(c.val["label"]).to(device)) for c in clients])
+        val = R.val_loss(model, params[0], params[1],
+                         [on_device(c.val) for c in clients])
     return {"losses": losses, "grads": grads, "params": params,
             "moments": moments, "val": val}
 
@@ -234,13 +271,16 @@ def compare(prog: dict, ref: dict, init: tuple, where: bool = False):
     first ``FIRST_STEPS`` steps, and ``epoch_loss_gap`` in any step;
     ``moment_gap`` and ``update_gap``, by the worst leaf, Adam's first
     moment and the parameters' change after the epoch; ``val_gap``, the
-    validation loss's relative gap.  ``where``: also the
-    step and hospital of the widest loss gap, the worst leaves, and each
-    step's widest loss gap."""
+    validation loss's relative gap.  A program that reports one loss a
+    step, the mean over hospitals ([steps, 1]), is held to the mean of
+    the reference's.  ``where``: also the step and hospital of the widest
+    loss gap, the worst leaves, and each step's widest loss gap."""
     # [steps, hospitals], the reference's losses being step-major
     n = len(init[0])
-    lp, lr = (np.asarray(x["losses"], np.float64).reshape(-1, n)
-              for x in (prog, ref))
+    lr = np.asarray(ref["losses"], np.float64).reshape(-1, n)
+    lp = np.asarray(prog["losses"], np.float64).reshape(len(lr), -1)
+    if lp.shape[1] == 1 and n > 1:
+        lr = lr.mean(axis=1, keepdims=True)
     loss = np.abs(lp - lr) / np.abs(lr)
     gr = _leaf_norms(ref["grads"])
     med = statistics.median(gr.values())
@@ -282,7 +322,7 @@ def _window(s: dict, traffic: dict, seconds: float, device, traced: bool):
     """Whole epochs until ``seconds`` have passed; returns the window's
     record (with each epoch's seconds and the program's ``pack`` span in
     it) and, traced, the profiled epochs' record."""
-    strat, clients = s["strat"], s["clients"]
+    program, strat, clients = s["program"], s["strat"], s["clients"]
     train = [c.train for c in clients]
     n_traced = TRACED_EPOCHS if traced else 0
     # the program's host spans, a few a epoch: cheap, and read in every run
@@ -325,7 +365,9 @@ def _window(s: dict, traffic: dict, seconds: float, device, traced: bool):
 
 
 def traced_record(prof: dict, cfg: dict, traffic: dict) -> dict:
-    """The record the per-layer readers take (``metrics/*.py``)."""
+    """The record the per-layer readers take (``metrics/*.py``); the
+    FLOP and byte counts are the family's reference's."""
+    ref = family(cfg, "reference")
     tracer = prof["tracer"]
     epoch0 = time.perf_counter() - tracer.now()
     events = tracer.events[slice(*prof["tracer_events"])]
@@ -340,12 +382,12 @@ def traced_record(prof: dict, cfg: dict, traffic: dict) -> dict:
     rec.update(
         classes=trace.kernel_classes(), wall_s=prof["wall_s"],
         busy_s=trace.busy_us(rec["kernels"]) / 1e6, epochs=prof["epochs"],
-        steps=steps, images=steps * step_images(traffic),
+        steps=steps, samples=steps * step_samples(traffic),
         dispatches=prof["dispatches"], program_spans=spans,
-        flops_per_image=R.forward_flops(cfg),
+        flops_per_sample=ref.forward_flops(cfg, traffic),
         peak_flops_per_s=peaks["flops_per_s"][cfg["precision"]],
         hbm_bytes_per_s=peaks["hbm_bytes_per_s"],
-        k3_bytes_per_step=(R.link_bytes(cfg, step_images(traffic))
+        k3_bytes_per_step=(ref.link_bytes(cfg, traffic, step_samples(traffic))
                            if traffic["link"]["codec"] == "int8"
                            and traffic["link"]["fused"] else 0))
     return rec
@@ -383,7 +425,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
         + " ".join(f"{t:.3f}" for t in win["pack_s"]) + " s")
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     rec = dict(win, setup_s=setup_s, peak_bytes=peak,
-               images=win["attempted"] * step_images(traffic))
+               samples=win["attempted"] * step_samples(traffic))
     breakdown, busy = None, None
     if traced:
         trec = traced_record(prof, cfg, traffic)

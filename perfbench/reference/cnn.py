@@ -1,6 +1,7 @@
 """Plain PyTorch DenseNet-121 and U-Net of the paper (arXiv:2012.12591 §3.2),
 written from the configuration files alone: the yardstick that decides a
-run's ``correct`` and counts its FLOPs.  It imports nothing of the program.
+CNN family's ``correct`` and counts its FLOPs (``families/densenet``,
+``families/unet``).  It imports nothing of the program.
 
 Tensors are NCHW float32.  A model is an ordered list of units; a config's
 ``cut`` puts units[0:cut] at the client (the front) and the rest at the
@@ -192,16 +193,14 @@ def unet_units(m: dict) -> list:
     return units
 
 
-FAMILIES = {"densenet": densenet_units, "unet": unet_units}
-
-
 class Model:
-    """A config's model cut into the front (client) and the middle
-    (server)."""
+    """A config's model, its units made by ``units`` (``densenet_units``
+    or ``unet_units``) from ``cfg["model"]``, cut into the front (client)
+    and the middle (server)."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, units):
         self.cfg = cfg
-        self.units = FAMILIES[cfg["family"]](cfg["model"])
+        self.units = units(cfg["model"])
         self.cut = cfg["model"]["cut_layer"]
         self.segments = {"front": self.units[:self.cut],
                          "middle": self.units[self.cut:]}

@@ -23,7 +23,22 @@ MINI_CONFIGS = {
              "model": {"widths": [16, 32, 64, 96], "in_ch": 1,
                        "n_classes": 1, "cut_layer": 2},
              "image_size": 32, "precision": "fp32"},
+    # the port's dense LM kind at a size the CPU runs in a second
+    "lm_dense": {"name": "lm-dense-mini", "family": "lm_dense",
+                 "hidden_size": 64, "intermediate_size": 128,
+                 "num_hidden_layers": 2, "num_attention_heads": 4,
+                 "num_key_value_heads": 2, "vocab_size": 128,
+                 "rope_theta": 10000.0, "rms_norm_eps": 1e-06,
+                 "cut_layer": 1, "precision": "fp32"},
 }
+# three hospitals of 8, 6 and 4 sequences of 16 tokens, batches of two: an
+# epoch of four steps, the smaller hospitals wrapping around in the last
+LM_MINI_TRAFFIC = {
+    "kind": "train", "method": "sflv3", "train_samples": [8, 6, 4],
+    "val_samples": 2, "seq_len": 16, "batch": 2,
+    "link": {"codec": "int8", "fused": False}, "privacy": None,
+    "optimizer": {"name": "adam", "lr": 1e-3, "b1": 0.9, "b2": 0.999,
+                  "eps": 1e-08}}
 
 
 def mini_parts(family="densenet", traffic="sflv3-tenth-b16"):
@@ -38,6 +53,13 @@ def mini_parts(family="densenet", traffic="sflv3-tenth-b16"):
                          "densenet121.sflv3.fp32.json").read_text())
     w = {"name": "mini", "config": "mini", "traffic": "mini", "chips": 1}
     return w, MINI_CONFIGS[family], traffic, limits
+
+
+def lm_parts(limits: dict):
+    """(workload, config, traffic, limits) of the ``lm_dense`` mini cell,
+    under ``limits``, which the test states."""
+    w = {"name": "mini", "config": "mini", "traffic": "mini", "chips": 1}
+    return w, MINI_CONFIGS["lm_dense"], dict(LM_MINI_TRAFFIC), limits
 
 
 @pytest.fixture

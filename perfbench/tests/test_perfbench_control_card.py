@@ -21,7 +21,8 @@ def card():
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_control_fails_and_program_passes(workload, card):
-    limits = harness.cell(workload, harness.bench())[3]
-    r = control.readings(workload, 1_000_003, ("program", "tf32"), card)
+    parts = harness.cell(workload, harness.bench())
+    limits = parts[3]
+    r = control.readings(parts, 1_000_003, ("program", "tf32"), card)
     assert all(r["program"][k] <= limits[k] for k in harness.CHECKS)
     assert any(r["tf32"][k] > limits[k] for k in harness.CHECKS)

@@ -67,6 +67,9 @@ def test_cell_parts_found_by_name(w):
     assert all(v > 0 for v in limits.values())
     # the check's first three steps train rows that all differ
     assert min(harness.batches_of(traffic)) >= 3
+    # the configuration's family, found by its name
+    assert callable(harness.family(cfg, "program").build)
+    assert callable(harness.family(cfg, "reference").model)
 
 
 @pytest.mark.parametrize("m", B["per_layer"], ids=lambda m: m["name"])
@@ -91,10 +94,10 @@ def test_config_files_under_paths():
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
 
 
-@pytest.mark.parametrize("traffic, steps, images", [
+@pytest.mark.parametrize("traffic, steps, samples", [
     ("sflv3-tenth-b16", 23, 80), ("sflv3-160th-b2", 12, 10)])
-def test_epoch_schedule(traffic, steps, images):
+def test_epoch_schedule(traffic, steps, samples):
     t = json.loads((ROOT / "perfbench" / "traffic" /
                     f"{traffic}.json").read_text())
     assert harness.epoch_steps(t) == steps
-    assert harness.step_images(t) == images
+    assert harness.step_samples(t) == samples

@@ -1,28 +1,42 @@
-"""The plain reference: its FLOP and byte counts at the cells' sizes, its
-int8 link against the program's plain version, and its SplitFedv3 steps
-against the program's at the mini models' sizes on the CPU."""
+"""The plain references: their FLOP and byte counts (each family's, found
+by the configuration's ``family``) at the cells' sizes and the LM mini's,
+the int8 link against the program's plain version, and the SplitFedv3
+steps against the program's at the mini models' sizes on the CPU."""
 
 import json
 
 import pytest
 import torch
 
-from conftest import ROOT, mini_parts
+from conftest import LM_MINI_TRAFFIC, MINI_CONFIGS, ROOT, mini_parts
 
 from perfbench import harness
 from perfbench.reference import train as R
 
 
 def _cfg(name):
+    if name == "lm-dense-mini":
+        return MINI_CONFIGS["lm_dense"], LM_MINI_TRAFFIC
     return json.loads((ROOT / "perfbench" / "configs" / f"{name}.json")
-                      .read_text())
+                      .read_text()), None
+
+
+# the LM mini (d 64, ff 128, 4 heads of 16, 2 KV heads, vocab 128, 16
+# positions) a layer: q, k, v, o 2*16*64*(64+32+32+64); scores and values
+# 2 * 2*4*16*16*16; SwiGLU 3 * 2*16*64*128; two layers and the head
+# 2*16*64*128
+LM_MINI_FLOPS = 2 * (2 * 16 * 64 * 192 + 2 * 2 * 4 * 16 ** 3
+                     + 3 * 2 * 16 * 64 * 128) + 2 * 16 * 64 * 128
 
 
 @pytest.mark.parametrize("name, flops", [
     ("densenet121-paper-224", 5_508_925_440),
-    ("unet-xception-paper-768", 112_082_153_472)])
+    ("unet-xception-paper-768", 112_082_153_472),
+    ("lm-dense-mini", LM_MINI_FLOPS)])
 def test_forward_flops(name, flops):
-    assert R.forward_flops(_cfg(name)) == flops
+    cfg, traffic = _cfg(name)
+    assert harness.family(cfg, "reference").forward_flops(
+        cfg, traffic) == flops
 
 
 @pytest.mark.parametrize("name, images, nbytes", [
@@ -32,13 +46,17 @@ def test_forward_flops(name, flops):
     # + 48^2 x 728 = 72,456,192 f32 (289.8 MB) an image, read and written
     ("unet-xception-paper-768", 10, 2 * 10 * 72_456_192 * 4),
     # the same leaves in bfloat16 move half the bytes
-    ("unet-xception-paper-768-bf16", 10, 2 * 10 * 72_456_192 * 2)])
+    ("unet-xception-paper-768-bf16", 10, 2 * 10 * 72_456_192 * 2),
+    # six sequences of 16 positions of 64 f32 values
+    ("lm-dense-mini", 6, 2 * 6 * 16 * 64 * 4)])
 def test_link_bytes(name, images, nbytes):
     if name.endswith("-bf16"):
-        cfg = dict(_cfg(name[:-5]), precision="bf16")
+        cfg, traffic = _cfg(name[:-5])
+        cfg = dict(cfg, precision="bf16")
     else:
-        cfg = _cfg(name)
-    assert R.link_bytes(cfg, images) == nbytes
+        cfg, traffic = _cfg(name)
+    assert harness.family(cfg, "reference").link_bytes(
+        cfg, traffic, images) == nbytes
 
 
 def test_epoch_batches_are_the_programs():
@@ -75,6 +93,18 @@ def test_int8_link_equals_the_programs_plain_version():
     xr = x.clone().requires_grad_(True)
     R.int8_link(xr).sum().backward()
     assert torch.equal(xr.grad, torch.ones_like(x))      # straight through
+
+
+def test_int8_link_on_token_rows_equals_the_programs():
+    """The LM's cut: a row is one token's hidden state (the last axis), as
+    the program's ``compress_boundary`` takes it."""
+    from repro_torch.kernels.act_compress.ops import compress_boundary
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((3, 7, 64), generator=g) * torch.rand((3, 7, 1),
+                                                          generator=g)
+    x[1, 2] = 0.0                                        # an all-zero row
+    assert torch.equal(R.int8_link(x, -1), compress_boundary(x))
 
 
 @pytest.mark.parametrize("family, traffic", [

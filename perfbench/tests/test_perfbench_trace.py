@@ -57,9 +57,9 @@ def test_device_ops_sum_launches():
 def record():
     return {"kernels": KERNELS, "spans": SPANS, "classes": CLASSES,
             "wall_s": 1e-3, "busy_s": 420e-6, "epochs": 1, "steps": 2,
-            "images": 160, "dispatches": 3,
+            "samples": 160, "dispatches": 3,
             "program_spans": {"pack": [0.05]},
-            "flops_per_image": 1e6, "peak_flops_per_s": 67e12,
+            "flops_per_sample": 1e6, "peak_flops_per_s": 67e12,
             "hbm_bytes_per_s": 3.35e12, "k3_bytes_per_step": 1.0e5}
 
 
